@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Chip smoke test of the PyTorch/CUDA port's serving path, on one GPU.
+"""Chip smoke test of the PyTorch/CUDA port, on one GPU: serving and
+training.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``speech_transcript_embeddings_torch/
-csrc`` (nvcc, sm_90a), holds each against its plain PyTorch twin at the
-shapes the serving path gives it, runs a small model on the GPU (kernels)
-and on the CPU (twins) with the same seeded weights, then serves the
-full-width ``retrieval_model_config()`` model (random weights from a seed)
-through the port's HTTP service and checks its answers and that the main
-path went through every kernel. Each phase prints one line; any failure
+csrc`` (nvcc, sm_90a) and holds each against its plain PyTorch twin at the
+shapes the serving and training paths give it: log-mel (phase 2), the flash
+forward (phase 3) and backward (phase 6). Runs a small model on the GPU
+(kernels) and on the CPU (twins) with the same seeded weights, for serving
+(phase 4) and for one optimizer step (phase 7). Serves the full-width
+``retrieval_model_config()`` model (random weights from a seed) through the
+port's HTTP service (phase 5), then trains it through the port's CLI,
+``preset=retrieval`` for one epoch on synthetic clips, and serves the
+trained ``final_model`` (phase 8). Phases 5 and 8 check that their path went
+through every kernel. Each phase prints a line per check; any failure
 raises and exits non-zero. Detailed numbers go to
 ``chiprun_out/chip_smoke.json``. The last line is the JSON result.
 """
@@ -179,6 +184,89 @@ def phase3():
     return worst, times
 
 
+def _max_rel_err(a, b):
+    """max|a − b| / max|b| (fp32)."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def phase6():
+    """Flash backward (K4) against its plain twin: fwd+bwd at every T_PADS in
+    bf16 and fp32, plus hd 128, a clip with no valid frame and the training
+    shape (B 16, t_pad 768); times K4 alone and fwd+bwd against the twin's
+    fwd+bwd. Tolerance: max error over max|twin| per gradient, 2e-2 in bf16
+    and 1e-4 in fp32 (phase 3's forward tolerances)."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    g = torch.Generator().manual_seed(6)
+    left, right = 64, 8
+    cases = [(dt, t, 2, 16, 64, "ragged") for dt in ("bfloat16", "float32")
+             for t in T_PADS]
+    cases += [("bfloat16", 512, 2, 8, 128, "ragged"),
+              ("float32", 512, 2, 8, 128, "ragged"),
+              ("bfloat16", 256, 2, 16, 64, "zero_length"),
+              ("float32", 256, 2, 16, 64, "zero_length"),
+              ("bfloat16", 768, 16, 16, 64, "ragged")]   # the training shape
+    tols = {"bfloat16": 2e-2, "float32": 1e-4}
+    worst, worst_abs, times = {}, {}, {}
+    for name, t, b, nh, hd, kind in cases:
+        dtype = getattr(torch, name)
+        q, k, v, dout = (torch.randn(b * nh, t, hd, generator=g).to(
+            "cuda", dtype) for _ in range(4))
+        e = (torch.randn(left + right + 1, hd, generator=g) * 0.3).to(
+            "cuda", dtype)
+        lens = [t] + [0 if kind == "zero_length" else int(t * 0.6)] * (b - 1)
+        mask = (torch.arange(t)[None, :] < torch.tensor(lens)[:, None]
+                ).to("cuda")
+        kw = dict(num_heads=nh, left_max=left)
+        out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
+        got = fa.flash_attention_bwd(q, k, v, e, mask, out, lse, dout, **kw)
+        ref = fa.rel_attention_bwd_reference(q, k, v, e, mask, out, lse,
+                                             dout, **kw)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, a, r in zip(("dq", "dk", "dv", "dE"), got, ref):
+            if a.dtype != r.dtype or a.shape != r.shape or \
+                    not torch.isfinite(a).all():
+                raise AssertionError(f"flash bwd {gname}: {a.dtype} "
+                                     f"{tuple(a.shape)} vs {r.dtype} "
+                                     f"{tuple(r.shape)}, or not finite")
+            errs[gname] = _max_rel_err(a, r)
+            worst_abs[name] = max(worst_abs.get(name, 0.0), (
+                a.float() - r.float()).abs().max().item())
+            if errs[gname] > tols[name]:
+                raise AssertionError(
+                    f"flash bwd {gname} {name} t {t} hd {hd} {kind}: max "
+                    f"error {errs[gname]:.2e} of max|ref| > {tols[name]}")
+        bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, e, mask, out, lse, dout, **kw), iters=10)
+        bwd_plain_ms = cuda_ms(lambda: fa.rel_attention_bwd_reference(
+            q, k, v, e, mask, out, lse, dout, **kw), iters=5, warmup=1)
+
+        def both(fwd, bwd):
+            o, l = fwd(q, k, v, e, mask, **kw)
+            bwd(q, k, v, e, mask, o, l, dout, **kw)
+        fb_ms = cuda_ms(lambda: both(fa.flash_attention_fwd,
+                                     fa.flash_attention_bwd), iters=10)
+        fb_plain_ms = cuda_ms(lambda: both(fa.rel_attention_reference,
+                                           fa.rel_attention_bwd_reference),
+                              iters=5, warmup=1)
+        worst[name] = max(worst.get(name, 0.0), *errs.values())
+        times[(name, t, b, hd, kind)] = (bwd_ms, bwd_plain_ms)
+        log(6, f"flash bwd {name} t_pad {t} B={b} h={nh} hd={hd} {kind}: "
+               f"max err/max|ref| dq {errs['dq']:.1e} dk {errs['dk']:.1e} "
+               f"dv {errs['dv']:.1e} dE {errs['dE']:.1e} (tol "
+               f"{tols[name]:g}); K4 {bwd_ms:.3f} ms vs plain "
+               f"{bwd_plain_ms:.3f} ms; fwd+bwd kernels {fb_ms:.3f} ms vs "
+               f"plain {fb_plain_ms:.3f} ms",
+            dtype=name, t_pad=t, B=b, heads=nh, hd=hd, kind=kind, errs=errs,
+            bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms, fwd_bwd_ms=fb_ms,
+            fwd_bwd_plain_ms=fb_plain_ms)
+        del q, k, v, dout, out, lse, got, ref
+        torch.cuda.empty_cache()
+    return worst, worst_abs, times
+
+
 def _clip(seconds, seed):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -265,6 +353,7 @@ def phase5():
     from speech_transcript_embeddings_torch.models.dual_encoder import (
         init_model,
     )
+    from speech_transcript_embeddings_torch.models.layers import Dense, Embed
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
     from speech_transcript_embeddings_torch.serve import (
@@ -285,9 +374,20 @@ def phase5():
         torch.cuda.empty_cache()
         service = EmbeddingService(path, device="cuda")
     setup_s = time.perf_counter() - t0
+    # serving stores every Dense and Embed weight in its compute dtype (bf16
+    # in the encoders), so the cast at each call is a no-op
+    dense = [m for m in service.embedder.model.modules()
+             if isinstance(m, (Dense, Embed))]
+    if any(m.weight.dtype != m.dtype for m in dense):
+        raise AssertionError("a served Dense/Embed weight is not stored in "
+                             "its compute dtype")
+    n_bf16 = sum(m.weight.dtype == torch.bfloat16 for m in dense)
     log(5, f"retrieval_model_config: {n_params / 1e6:.1f}M params in "
-           f"{cfg.model.dtype}, init + save + load {setup_s:.1f} s",
-        params=n_params, setup_s=setup_s)
+           f"{cfg.model.dtype}, init + save + load {setup_s:.1f} s; "
+           f"{n_bf16}/{len(dense)} Dense/Embed weights stored in bf16 (the "
+           f"rest are the fp32 heads)",
+        params=n_params, setup_s=setup_s, dense_bf16=n_bf16,
+        dense=len(dense))
     if not 850e6 < n_params < 900e6:
         raise AssertionError(f"unexpected parameter count {n_params}")
 
@@ -378,6 +478,21 @@ def phase5():
     return launches
 
 
+def _device_rows(prof):
+    """(device ms, kernel name, calls) of a torch.profiler run, largest
+    first (device-side events only: host ops are not counted)."""
+    import torch
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0))
+        if dev > 0:
+            rows.append((dev / 1e3, e.key, e.count))
+    return sorted(rows, reverse=True)
+
+
 def _breakdown(embedder, batches, lat):
     """Where a warm audio request's time goes: the Embedder alone (no HTTP,
     no JSON; host clock over a call that ends in a device sync) and one
@@ -398,15 +513,7 @@ def _breakdown(embedder, batches, lat):
             t0 = time.perf_counter()
             embedder.embed_audios(clips)
             wall = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue        # host ops; their kernels are counted below
-            dev = getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0))
-            if dev > 0:
-                rows.append((dev / 1e3, e.key, e.count))
-        rows.sort(reverse=True)
+        rows = _device_rows(prof)
         busy = sum(r[0] for r in rows)
         top = "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, k, c in rows[:6])
         log(5, f"{name}: HTTP request {http[name]:.1f} ms, Embedder alone "
@@ -419,6 +526,300 @@ def _breakdown(embedder, batches, lat):
             top=[{"kernel": k, "calls": c, "ms": ms} for ms, k, c in rows[:25]])
 
 
+ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias")
+
+
+def _train_cfg_small():
+    from speech_transcript_embeddings_torch.config import (
+        AudioEncoderConfig, DataConfig, ExperimentConfig, FreezeConfig,
+        FrontendConfig, HeadsConfig, LossConfig, ModelConfig,
+        OptimizerConfig, TextEncoderConfig, TrainConfig,
+    )
+    mc = ModelConfig(
+        text=TextEncoderConfig(vocab_size=1000, hidden_size=128, num_layers=2,
+                               num_heads=4, intermediate_size=512),
+        audio=AudioEncoderConfig(hidden_size=256, num_layers=2, num_heads=4,
+                                 intermediate_size=1024,
+                                 use_flash_attention=True,
+                                 remat_policy="save_hot2"),
+        frontend=FrontendConfig(use_pallas=True),
+        heads=HeadsConfig(projection_dim=128, use_cross_modal=False,
+                          use_word_alignment=False),
+        dtype="float32", remat=True)
+    return ExperimentConfig(
+        model=mc,
+        freeze=FreezeConfig(mode="partial", text_layers_to_unfreeze=1,
+                            audio_layers_to_unfreeze=1),
+        loss=LossConfig(kind="global"),
+        optimizer=OptimizerConfig(learning_rate=1e-3, warmup_steps=0),
+        data=DataConfig(dataset="synthetic", batch_size=4, max_text_length=16,
+                        audio_buckets=(41200, 82160), max_audio_samples=82160,
+                        num_synthetic_samples=32),
+        train=TrainConfig(num_epochs=1, accumulation_steps=2, seed=0))
+
+
+def phase7():
+    """One optimizer step (accumulation 2, global loss) of a small fp32
+    model with flash attention under save_hot2 remat, on the GPU (kernels,
+    TF32 off) and on the CPU (twins), from the same weights and batches,
+    dropout off. Tolerances: loss and grad norm rtol 1e-4; the first
+    micro-batch's gradient, per trainable leaf, within 1e-3 of the leaf's
+    largest element (the leaves whose exact gradient is 0, below 1e-4 of the
+    largest gradient of the model); each updated leaf 99.9% of elements
+    within 1e-5 (not those zero-gradient leaves, whose noise Adam scales to
+    ±lr) and all within 2·lr — Adam's first step moves a weight by
+    ≈lr·sign(g), so an element whose gradient is rounding noise may flip;
+    frozen leaves bit-identical."""
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch.data import (
+        DataPipeline, SimpleWordTokenizer, SyntheticSource,
+    )
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import make_frontend
+    from speech_transcript_embeddings_torch.training import losses
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    cfg = _train_cfg_small()
+    pipe = DataPipeline(cfg.data, SimpleWordTokenizer(vocab_size=1000),
+                        seed=0)
+    batches = list(pipe.epoch_batches(SyntheticSource(cfg.data, seed=3),
+                                      "train", 1))[:2]
+    model = init_model(cfg.model, torch.Generator().manual_seed(7),
+                       train=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(device)
+        state = ts.create_train_state(m, cfg, total_steps=4)
+        frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+        frontend = make_frontend(cfg.model.frontend).to(device)
+        out = state.model.forward_pos_neg(ts.model_batch_from_host(
+            frontend, batches[0], device), None)
+        grads = torch.autograd.grad(
+            losses.compute_loss(cfg.loss, out)[0],
+            list(state.trainable.values()), allow_unused=True)
+        grads = {k: (torch.zeros_like(p) if g is None else g).cpu()
+                 for (k, p), g in zip(state.trainable.items(), grads)}
+        metrics = [{k: float(v) for k, v in ts.train_step(
+            cfg, state, frontend, b, None).items()} for b in batches]
+        if state.optimizer.count != 1:
+            raise AssertionError(f"{state.optimizer.count} updates after two "
+                                 "micro-steps at accumulation 2")
+        for k, p in state.frozen.items():
+            if not torch.equal(p, frozen0[k]):
+                raise AssertionError(f"frozen {k} changed on {device}")
+        runs[device] = (metrics, {k: p.detach().cpu() for k, p in
+                                  state.trainable.items()}, grads)
+    init = dict(model.named_parameters())
+    errs = {}
+    for key in ("loss", "grad_norm"):
+        for i, (g, c) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+            errs[f"{key}_{i}"] = abs(g[key] - c[key]) / abs(c[key])
+            if not np.isfinite(g[key]) or errs[f"{key}_{i}"] > 1e-4:
+                raise AssertionError(f"micro-step {i} {key}: GPU {g[key]} vs "
+                                     f"CPU {c[key]}")
+    g_cpu, g_gpu = runs["cpu"][2], runs["cuda"][2]
+    g_max = max(g.abs().max().item() for g in g_cpu.values())
+    grad_err = 0.0
+    for k, c in g_cpu.items():
+        d = (g_gpu[k] - c).abs().max().item()
+        if k.endswith(ZERO_GRAD_LEAVES):
+            if max(c.abs().max().item(), g_gpu[k].abs().max().item()) \
+                    > 1e-4 * g_max:
+                raise AssertionError(f"gradient of {k} is not ≈0")
+            continue
+        c_max = c.abs().max().item()      # 0 for a leaf the loss never reads
+        grad_err = max(grad_err, d / c_max if c_max else d)
+        if d > 1e-3 * c_max:
+            raise AssertionError(f"gradient of {k}: GPU vs CPU max diff "
+                                 f"{d:.2e} of max {c.abs().max().item():.2e}")
+    lr = cfg.optimizer.learning_rate
+    worst, moved, far = 0.0, 0, 0.0
+    for k, c in runs["cpu"][1].items():
+        g = runs["cuda"][1][k]
+        diff = (g - c).abs()
+        worst = max(worst, diff.max().item())
+        share = (diff > 1e-5).float().mean().item()
+        if k.endswith(ZERO_GRAD_LEAVES):
+            share = 0.0     # Adam scales their gradient noise to ±lr
+        far = max(far, share)
+        if diff.max() > 2 * lr or share > 1e-3:
+            raise AssertionError(f"updated {k}: GPU vs CPU max diff "
+                                 f"{diff.max().item():.2e}, share beyond 1e-5 "
+                                 f"{share:.1e}")
+        moved += not torch.equal(g, init[k].detach())
+    if moved < 0.9 * len(runs["cpu"][1]):
+        raise AssertionError(f"only {moved} of {len(runs['cpu'][1])} "
+                             "trainable leaves moved")
+    log(7, f"small f32 model, accumulation 2, global loss, save_hot2 remat: "
+           f"GPU (kernels) vs CPU (twins) loss/grad-norm rel err "
+           f"{max(errs.values()):.1e} (tol 1e-4), gradient max err/max per "
+           f"leaf {grad_err:.1e} (tol 1e-3), updated params max diff "
+           f"{worst:.1e} (bound 2·lr = {2 * lr:g}), share beyond 1e-5 "
+           f"{far:.1e} (tol 1e-3), {moved}/{len(runs['cpu'][1])} trainable "
+           f"leaves moved, frozen unchanged",
+        errs=errs, grad_err=grad_err, param_max_diff=worst,
+        share_beyond_1e5=far, moved=moved,
+        gpu=runs["cuda"][0], cpu=runs["cpu"][0])
+
+
+N_PARAMS = 863_886_658
+N_TRAINABLE = 354_846_082
+
+
+def phase8():
+    """Full-width ``preset=retrieval`` training through the port's CLI, in
+    process, on synthetic CV-length clips: one epoch of micro-batches of 16
+    at accumulation 4, validation, the final_model checkpoint, which the
+    serving path loads. Checks the parameter split, finite losses, the
+    frozen split untouched, the trainable split moved, and that every
+    micro-step ran the kernels (K4 24 times, K3 24 times with no remat
+    replay, the log-mel kernels once per batch)."""
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.inference.embed import Embedder
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    from torch.profiler import ProfilerActivity, profile
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        argv = ["preset=retrieval", "device=cuda",
+                "data.synthetic_length_profile=cv", "train.num_epochs=1",
+                "optimizer.warmup_steps=1", f"train.output_dir={tmp}/run"]
+        # every count starts at zero just before the main path runs
+        fk.log_mel.launches = 0
+        fk.log_mel.launches_by_frames.clear()
+        fk.normalize_and_stack.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_bwd.launches = 0
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"log_mel": fk.log_mel.launches,
+                    "log_mel_normalize": fk.normalize_and_stack.launches,
+                    "flash_rel_fwd": fa.flash_attention_fwd.launches,
+                    "flash_rel_bwd": fa.flash_attention_bwd.launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        cfg, state = res["cfg"], res["state"]
+        ep = res["epochs"][0]
+        micro, n_eval = ep["train_batches"], ep["eval_batches"]
+        layers = cfg.model.audio.num_layers
+        if cfg.model.audio.remat_policy != "save_hot2" or not cfg.model.remat:
+            raise AssertionError(f"preset=retrieval remat: {cfg.model.remat} "
+                                 f"{cfg.model.audio.remat_policy}")
+        want = {"flash_rel_bwd": layers * micro,
+                "flash_rel_fwd": layers * (micro + n_eval),
+                "log_mel": micro + n_eval, "log_mel_normalize": micro + n_eval}
+        if launches != want:
+            raise AssertionError(f"launches {launches} != {want} for {micro} "
+                                 f"micro-steps and {n_eval} eval batches")
+        if (res["n_params"], res["n_trainable"]) != (N_PARAMS, N_TRAINABLE):
+            raise AssertionError(f"{res['n_params']} params, "
+                                 f"{res['n_trainable']} trainable")
+        losses = [s["loss"] for s in res["step_log"]]
+        if len(losses) != micro or not np.isfinite(losses).all():
+            raise AssertionError(f"micro-step losses {losses}")
+        if not np.isfinite(ep["val_metrics"]["loss"]):
+            raise AssertionError(f"validation {ep['val_metrics']}")
+        updates = state.optimizer.count
+        warm = ep["warm_clips_per_sec"]
+        samples = sorted({s["samples"] for s in res["step_log"]})
+
+        # the same seeded init again: the frozen split must be bit-identical,
+        # the trainable split must have moved (update 1 has lr 0 under
+        # warmup, update 2 does not)
+        fresh = init_model(cfg.model, torch.Generator("cuda").manual_seed(
+            cfg.train.seed), "cuda", train=True)
+        fresh = ts.create_train_state(fresh, cfg, total_steps=1)
+        for k, p in state.frozen.items():
+            if not torch.equal(p, fresh.frozen[k]):
+                raise AssertionError(f"frozen {k} changed")
+        moved = [k for k, p in state.trainable.items()
+                 if not torch.equal(p, fresh.trainable[k])]
+        still = sorted(set(state.trainable) - set(moved))
+        del fresh
+        torch.cuda.empty_cache()
+        if updates < 2 or len(moved) < 0.9 * len(state.trainable):
+            raise AssertionError(f"{len(moved)} of {len(state.trainable)} "
+                                 f"trainable leaves moved in {updates} "
+                                 f"updates; unchanged: {still[:10]}")
+        log(8, f"preset=retrieval through the CLI: {res['n_params']:,} params, "
+               f"{res['n_trainable']:,} trainable; {micro} micro-steps of "
+               f"{cfg.data.batch_size} at buckets {samples} ({updates} "
+               f"updates), {n_eval} eval batches; losses {losses[0]:.4f} → "
+               f"{losses[-1]:.4f}, val loss {ep['val_metrics']['loss']:.4f}; "
+               f"frozen bit-identical, {len(moved)}/{len(state.trainable)} "
+               f"trainable leaves moved (unchanged: {still}); launches "
+               f"{launches}",
+            n_params=res["n_params"], n_trainable=res["n_trainable"],
+            micro_steps=micro, eval_batches=n_eval, updates=updates,
+            losses=losses, val=ep["val_metrics"], moved=len(moved),
+            unchanged=still, launches=launches, samples=samples)
+        log(8, f"train {ep['clips_per_sec']:.2f} clips/s over the epoch "
+               f"(host clock), {warm:.2f} clips/s warm (from the end of the "
+               f"first micro-step to the last, CUDA events); epoch "
+               f"{ep['train_seconds']:.1f} s, whole CLI run {wall:.1f} s; "
+               f"peak device memory {peak_gib:.2f} GiB",
+            clips_per_s=ep["clips_per_sec"], warm_clips_per_s=warm,
+            train_seconds=ep["train_seconds"], cli_seconds=wall,
+            peak_gib=peak_gib)
+
+        # one warm micro-step under the profiler (after the counts were read)
+        batch = max(res["pipeline"].epoch_batches(res["source"], "train", 1),
+                    key=lambda b: b["waveform"].shape[1])
+        gen = torch.Generator("cuda").manual_seed(1)
+        ts.train_step(cfg, state, res["frontend"], batch, gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ts.train_step(cfg, state, res["frontend"], batch, gen)
+        torch.cuda.synchronize()
+        plain_step_ms = (time.perf_counter() - t1) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            ts.train_step(cfg, state, res["frontend"], batch, gen)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t1) * 1e3
+        rows = _device_rows(prof)
+        busy = sum(r[0] for r in rows)
+        top = "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, k, c in rows[:8])
+        log(8, f"one warm micro-step at {batch['waveform'].shape[1]} samples "
+               f"(B={batch['waveform'].shape[0]}): {plain_step_ms:.1f} ms "
+               f"(host clock, ends in a device sync), {step_ms:.1f} ms under "
+               f"the profiler with device kernels busy {busy:.1f} ms (idle "
+               f"{1 - busy / plain_step_ms:.0%} of the unprofiled step); top "
+               f"device time: {top}",
+            samples=int(batch["waveform"].shape[1]),
+            step_ms=plain_step_ms, profiled_step_ms=step_ms,
+            device_busy_ms=busy, idle_share=1 - busy / plain_step_ms,
+            top=[{"kernel": k, "calls": c, "ms": ms} for ms, k, c in rows[:25]])
+        del state, res
+        torch.cuda.empty_cache()
+
+        emb = Embedder.from_checkpoint(os.path.join(tmp, "run", "final_model"),
+                                       device="cuda")
+        e = emb.embed_audios([_clip(6.0, 31)])
+        norm = float(np.linalg.norm(e[0]))
+        if e.shape != (1, 768) or not np.isfinite(e).all() or \
+                abs(norm - 1) > 1e-3:
+            raise AssertionError(f"final_model embedding {e.shape} norm {norm}")
+        log(8, f"final_model served by Embedder: one 6 s clip → unit vector "
+               f"(norm {norm:.6f})", norm=norm)
+        del emb
+        torch.cuda.empty_cache()
+    return launches, warm
+
+
 def main():
     import torch
     card = phase0()
@@ -426,8 +827,15 @@ def main():
     mel_err, mel_times = phase2()
     flash_err, flash_times = phase3()
     phase4()
-    launches = phase5()
+    serve = phase5()
+    bwd_err, bwd_abs_err, bwd_times = phase6()
+    phase7()
+    train, warm_clips_per_s = phase8()
+    by_path = {name: {"serve": serve.get(name, 0), "train": train[name]}
+               for name in train}
+    launches = {name: sum(v.values()) for name, v in by_path.items()}
     big = BUCKETS[-1]
+    train_shape = ("bfloat16", 768, 16, 64, "ragged")
     kernels = [
         {"name": "log_mel", "route": "cuda", "source": f"{REPO}/csrc/log_mel.cu",
          "replaces": f"{TPU}/ops/frontend_pallas.py:70",
@@ -450,12 +858,24 @@ def main():
          "ms": flash_times[("bfloat16", 1536)][0],
          "plain_ms": flash_times[("bfloat16", 1536)][1],
          "at": "bf16, B=2, 16 heads, t_pad 1536, hd 64"},
+        {"name": "flash_rel_bwd", "route": "cuda",
+         "source": f"{REPO}/csrc/flash_rel_bwd.cu",
+         "replaces": f"{TPU}/ops/flash_attention.py:278",
+         "launches": launches["flash_rel_bwd"],
+         "max_abs_err": bwd_abs_err["bfloat16"],
+         "ms": bwd_times[train_shape][0], "plain_ms": bwd_times[train_shape][1],
+         "at": "bf16, B=16, 16 heads, t_pad 768, hd 64 (the training shape)"},
     ]
+    for k in kernels:
+        k["launches_by_path"] = by_path[k["name"]]
     if any(m.split(".")[0] in ("jax", "flax") for m in sys.modules):
         raise AssertionError("jax was imported")
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, **RECORD}, f, indent=1)
+        json.dump({"card": card, "kernels": kernels,
+                   "flash_bwd_max_rel_err": bwd_err,
+                   "train_warm_clips_per_s": warm_clips_per_s, **RECORD},
+                  f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,17 @@ from speech_transcript_embeddings_tpu.config import (  # noqa: F401
     AudioEncoderConfig,
     DataConfig,
     ExperimentConfig,
+    FreezeConfig,
     FrontendConfig,
     HeadsConfig,
+    LossConfig,
     ModelConfig,
+    OptimizerConfig,
     TextEncoderConfig,
+    TrainConfig,
+    flagship_model_config,
+    parse_overrides,
     retrieval_model_config,
+    roberta_model_config,
     tiny_model_config,
 )

@@ -18,9 +18,7 @@ import numpy as np
 import torch
 
 from speech_transcript_embeddings_torch.config import ExperimentConfig
-from speech_transcript_embeddings_tpu.data.tokenizers import (
-    Tokenizer, resolve_tokenizer,
-)
+from speech_transcript_embeddings_torch.data import Tokenizer, resolve_tokenizer
 from speech_transcript_embeddings_torch import checkpoints as ckpt_lib
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel, l2_normalize,

@@ -2,15 +2,20 @@
 
 Port of ``speech_transcript_embeddings_tpu/models/dual_encoder.py`` with the
 pair-fusion heads off, which is ``retrieval_model_config()``: encoder →
-attentive pooling (or CLS / masked mean) → projection → L2 norm. The
-encoders run in ``cfg.dtype``; the heads run in fp32, as in the JAX model.
-Cross-modal fusion and word alignment are not ported yet: a config that
-asks for them raises rather than run a partial model.
+attentive pooling (or CLS / masked mean) → projection → L2 norm, for one
+transcript per clip (``forward_pair``, serving) or for the clean and the
+corrupted transcript of each clip in one 2B-row text call
+(``forward_pos_neg``, training). The encoders run in ``cfg.dtype``; the
+heads run in fp32, as in the JAX model. A ``generator`` turns dropout and
+SpecAugment on (JAX's ``deterministic=False``). Cross-modal fusion and word
+alignment are not ported yet: a config that asks for them raises rather
+than run a partial model.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,8 +48,20 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(torch.sum(x * x, dim=-1, keepdim=True) + eps)
 
 
+class PosNegOutput(NamedTuple):
+    text_pos: torch.Tensor       # [B, D] normalised
+    text_neg: torch.Tensor       # [B, D] normalised
+    audio: torch.Tensor          # [B, D] normalised
+    alignment_scores: Optional[torch.Tensor] = None   # word alignment: not ported
+
+
 class DualEncoderModel(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """``param_dtype`` is where Dense and Embed weights are stored: None
+    (serving) stores them in the compute dtype, ``torch.float32`` (training)
+    keeps them in fp32 and casts at each call, as JAX does."""
+
+    def __init__(self, cfg: ModelConfig,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         heads = cfg.heads
         if heads.use_cross_modal or heads.use_word_alignment:
@@ -55,30 +72,32 @@ class DualEncoderModel(nn.Module):
                 "False, e.g. retrieval_model_config()")
         self.cfg = cfg
         dtype = compute_dtype(cfg)
-        self.text_encoder = TextEncoder(cfg.text, dtype)
-        self.audio_encoder = AudioEncoder(cfg.audio, dtype)
+        self.text_encoder = TextEncoder(cfg.text, dtype, param_dtype,
+                                        remat=cfg.remat)
+        self.audio_encoder = AudioEncoder(cfg.audio, dtype, param_dtype,
+                                          remat=cfg.remat)
         proj = lambda in_dim: EnhancedProjection(
             in_dim, heads.projection_dim, heads.projection_hidden_dim,
-            heads.activation)
+            heads.activation, heads.dropout)
         self.text_projection = proj(cfg.text.hidden_size)
         self.audio_projection = proj(cfg.audio.hidden_size)
         if heads.use_attentive_pooling:
             self.text_pooling = AttentivePooling(cfg.text.hidden_size)
             self.audio_pooling = AttentivePooling(cfg.audio.hidden_size)
 
-    def encode_text(self, input_ids, attention_mask=None
+    def encode_text(self, input_ids, attention_mask=None, generator=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """→ (projected ``[B, D]`` fp32, hidden ``[B, T, H]``)."""
-        hidden = self.text_encoder(input_ids, attention_mask)
+        hidden = self.text_encoder(input_ids, attention_mask, generator)
         if self.cfg.heads.use_attentive_pooling:
             pooled = self.text_pooling(hidden, attention_mask)
         else:
             pooled = hidden[:, 0, :]
-        return self.text_projection(pooled), hidden
+        return self.text_projection(pooled, generator), hidden
 
-    def encode_audio(self, features, attention_mask=None
+    def encode_audio(self, features, attention_mask=None, generator=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        hidden = self.audio_encoder(features, attention_mask)
+        hidden = self.audio_encoder(features, attention_mask, generator)
         if self.cfg.heads.use_attentive_pooling:
             pooled = self.audio_pooling(hidden, attention_mask)
         elif attention_mask is not None:
@@ -86,7 +105,7 @@ class DualEncoderModel(nn.Module):
             pooled = (hidden * m).sum(1) / torch.clamp(m.sum(1), min=1e-9)
         else:
             pooled = hidden.mean(dim=1)
-        return self.audio_projection(pooled), hidden
+        return self.audio_projection(pooled, generator), hidden
 
     def forward_pair(self, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,33 +115,78 @@ class DualEncoderModel(nn.Module):
                                      batch["attention_mask_audio"])
         return l2_normalize(text), l2_normalize(audio)
 
-    def forward(self, batch):
+    def forward_pos_neg(self, batch: Dict[str, torch.Tensor],
+                        generator: Optional[torch.Generator] = None
+                        ) -> PosNegOutput:
+        """Clean and corrupted transcript against one clip: both transcripts
+        in one 2B-row text-encoder call, as the JAX model encodes them."""
+        b = batch["input_ids_pos"].shape[0]
+        ids = torch.cat([batch["input_ids_pos"], batch["input_ids_neg"]], 0)
+        tmask = torch.cat([batch["attention_mask_pos"],
+                           batch["attention_mask_neg"]], 0)
+        text, _ = self.encode_text(ids, tmask, generator)
+        audio, _ = self.encode_audio(batch["input_features"],
+                                     batch["attention_mask_audio"], generator)
+        return PosNegOutput(text_pos=l2_normalize(text[:b]),
+                            text_neg=l2_normalize(text[b:]),
+                            audio=l2_normalize(audio))
+
+    def forward(self, batch, generator=None):
+        if "input_ids_pos" in batch:
+            return self.forward_pos_neg(batch, generator)
         return self.forward_pair(batch)
 
 
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated to ±2
+
+
+def _truncated_normal(shape, std, generator, device):
+    """Flax's variance-scaling ``truncated_normal``: a unit normal truncated
+    to [−2, 2], scaled by ``std / 0.8796`` so the result has std ``std``
+    (inverse-CDF sampling, as ``jax.random.truncated_normal``)."""
+    lo, hi = (0.5 * (1 + math.erf(z / math.sqrt(2))) for z in (-2.0, 2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
+    z = torch.clamp(torch.special.ndtri(u), -2.0, 2.0)
+    return z * (std / _TRUNC_STD)
+
+
 @torch.no_grad()
-def init_model(cfg: ModelConfig, generator: torch.Generator,
-               device="cpu") -> DualEncoderModel:
-    """A seeded model on ``device`` (``generator`` must live there too):
-    Dense and Embed weights normal(0.02) with zero biases, LayerNorm 1/0,
-    distance embeddings normal(0.02), depthwise kernels normal(1/√K) (Flax's
-    lecun-normal scale), the SpecAugment vector uniform(0, 1)."""
+def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu",
+               *, train: bool = False) -> DualEncoderModel:
+    """A seeded model on ``device`` (``generator`` must live there too),
+    drawn from the distributions of the JAX package's initializers: Dense
+    kernels lecun-normal (truncated normal, std 1/√fan_in), Embed tables
+    normal with std 1/√features, depthwise kernels lecun-normal over the
+    kernel width, distance embeddings normal(0.02), the SpecAugment vector
+    uniform[0, 1), biases 0, LayerNorm 1/0. ``train`` keeps Dense and Embed
+    weights in fp32 and gradients on (the trainer then freezes its split);
+    otherwise the model is the serving form: weights in the compute dtype,
+    eval mode, no gradients."""
     with torch.device(device):
-        model = DualEncoderModel(cfg)
+        model = DualEncoderModel(cfg, torch.float32 if train else None)
+    normal = lambda p, std: p.copy_(std * torch.randn(
+        p.shape, generator=generator, device=p.device))
     for mod in model.modules():
-        if isinstance(mod, (Dense, Embed)):
-            mod.weight.normal_(0.0, 0.02, generator=generator)
-            if getattr(mod, "bias", None) is not None:
+        if isinstance(mod, Dense):
+            mod.weight.copy_(_truncated_normal(
+                mod.weight.shape, mod.weight.shape[1] ** -0.5, generator,
+                mod.weight.device))
+            if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, Embed):
+            normal(mod.weight, mod.weight.shape[1] ** -0.5)
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, RelPositionAttention):
-            mod.distance_embedding.normal_(0.0, 0.02, generator=generator)
+            normal(mod.distance_embedding, 0.02)
         elif isinstance(mod, ConvModule):
-            k = mod.depthwise_kernel.shape[-1]
-            mod.depthwise_kernel.normal_(0.0, k ** -0.5, generator=generator)
+            w = mod.depthwise_kernel
+            w.copy_(_truncated_normal(w.shape, w.shape[-1] ** -0.5,
+                                      generator, w.device))
     enc = model.audio_encoder
     if hasattr(enc, "masked_spec_embed"):
         enc.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+    if train:
+        return model
     return model.eval().requires_grad_(False)

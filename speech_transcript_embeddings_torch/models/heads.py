@@ -15,29 +15,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from speech_transcript_embeddings_torch.models.layers import Dense, LayerNorm
+from speech_transcript_embeddings_torch.models.layers import (
+    Dense, LayerNorm, dropout,
+)
 
 NEG_INF = -1e9
 
 
 class EnhancedProjection(nn.Module):
-    """Dense → act → Dense → LayerNorm into the shared space."""
+    """Dense → act → dropout → Dense → LayerNorm into the shared space."""
 
     def __init__(self, in_dim: int, projection_dim: int,
-                 hidden_dim: Optional[int] = None, activation: str = "gelu"):
+                 hidden_dim: Optional[int] = None, activation: str = "gelu",
+                 dropout: float = 0.0):
         super().__init__()
         hidden = hidden_dim or 2 * projection_dim
         if activation not in ("gelu", "relu"):
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
+        self.dropout_rate = dropout
         self.dense_in = Dense(in_dim, hidden)
         self.dense_out = Dense(hidden, projection_dim)
         self.norm = LayerNorm(projection_dim, 1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.dense_in(x)
         x = (F.gelu(x, approximate="none") if self.activation == "gelu"
              else F.relu(x))
+        x = dropout(x, self.dropout_rate, generator)
         return self.norm(self.dense_out(x))
 
 

@@ -1,9 +1,13 @@
-"""RoBERTa/XLM-R-style bidirectional text encoder (eval path).
+"""RoBERTa/XLM-R-style bidirectional text encoder.
 
 Port of ``speech_transcript_embeddings_tpu/models/text_encoder.py``:
 RoBERTa position ids (``cumsum(mask)·mask + pad_token_id``), post-LayerNorm
 blocks, erf-GELU FFN and an additive attention mask with an fp32 softmax.
 The attention is plain tensor code: the JAX package has no kernel here.
+Dropout sits at the JAX places (embeddings, attention probabilities,
+attention output, FFN output) and draws from the ``generator`` passed in
+(None: deterministic). With ``remat`` each block is recomputed in the
+backward (non-reentrant ``torch.utils.checkpoint``), as ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -13,10 +17,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from speech_transcript_embeddings_torch.config import TextEncoderConfig
 from speech_transcript_embeddings_torch.models.layers import (
-    Dense, Embed, LayerNorm, masked_probs,
+    Dense, Embed, LayerNorm, dropout, masked_probs, replayable,
 )
 
 
@@ -27,60 +32,67 @@ def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int
 
 
 class TextEmbeddings(nn.Module):
-    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype):
+    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = self.cfg = cfg
-        self.word_embeddings = Embed(c.vocab_size, c.hidden_size, dtype)
+        self.word_embeddings = Embed(c.vocab_size, c.hidden_size, dtype,
+                                     param_dtype)
         self.position_embeddings = Embed(c.max_position_embeddings,
-                                         c.hidden_size, dtype)
+                                         c.hidden_size, dtype, param_dtype)
         self.token_type_embeddings = Embed(c.type_vocab_size, c.hidden_size,
-                                           dtype)
+                                           dtype, param_dtype)
         self.norm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pos_ids = roberta_position_ids(input_ids, self.cfg.pad_token_id)
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(pos_ids)
              + self.token_type_embeddings(torch.zeros_like(input_ids)))
-        return self.norm(x)
+        return dropout(self.norm(x), self.cfg.hidden_dropout, generator)
 
 
 class TextSelfAttention(nn.Module):
-    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype):
+    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c = self.cfg = cfg
         h = c.hidden_size
-        self.query = Dense(h, h, dtype=dtype)
-        self.key = Dense(h, h, dtype=dtype)
-        self.value = Dense(h, h, dtype=dtype)
-        self.out = Dense(h, h, dtype=dtype)
+        dense = lambda: Dense(h, h, dtype=dtype, param_dtype=param_dtype)
+        self.query, self.key, self.value, self.out = (dense() for _ in range(4))
         self.norm = LayerNorm(h, c.layer_norm_eps, dtype)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.cfg
         split = lambda t: t.reshape(*t.shape[:-1], c.num_heads, c.head_dim)
         q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (c.head_dim ** 0.5)
-        probs = masked_probs(scores, mask)
+        probs = dropout(masked_probs(scores, mask), c.attention_dropout,
+                        generator)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(probs.dtype))
-        return self.norm(x + self.out(ctx.reshape(*x.shape[:-1], -1)))
+        out = dropout(self.out(ctx.reshape(*x.shape[:-1], -1)),
+                      c.hidden_dropout, generator)
+        return self.norm(x + out)
 
 
 class TextLayer(nn.Module):
-    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype):
+    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        c = cfg
-        self.attention = TextSelfAttention(c, dtype)
+        c = self.cfg = cfg
+        self.attention = TextSelfAttention(c, dtype, param_dtype)
         self.intermediate = Dense(c.hidden_size, c.intermediate_size,
-                                  dtype=dtype)
-        self.output = Dense(c.intermediate_size, c.hidden_size, dtype=dtype)
+                                  dtype=dtype, param_dtype=param_dtype)
+        self.output = Dense(c.intermediate_size, c.hidden_size, dtype=dtype,
+                            param_dtype=param_dtype)
         self.norm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
 
-    def forward(self, x, mask):
-        x = self.attention(x, mask)
+    def forward(self, x, mask, generator=None):
+        x = self.attention(x, mask, generator)
         y = self.output(F.gelu(self.intermediate(x), approximate="none"))
-        return self.norm(x + y)
+        return self.norm(x + dropout(y, self.cfg.hidden_dropout, generator))
 
 
 class TextEncoder(nn.Module):
@@ -88,16 +100,28 @@ class TextEncoder(nn.Module):
     Blocks are ``layer_0 … layer_{n-1}`` (the JAX scanned bottom stack is
     unstacked by ``bridge.py``)."""
 
-    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype):
+    def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
+                 param_dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.embeddings = TextEmbeddings(cfg, dtype)
+        self.remat = remat
+        self.embeddings = TextEmbeddings(cfg, dtype, param_dtype)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", TextLayer(cfg, dtype))
+            self.add_module(f"layer_{i}", TextLayer(cfg, dtype, param_dtype))
 
     def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.embeddings(input_ids)
+                attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.embeddings(input_ids, generator)
         for i in range(self.cfg.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attention_mask)
+            layer = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                gen = replayable(generator)
+                x = checkpoint(lambda h, m, layer=layer, gen=gen:
+                               layer(h, m, gen()),
+                               x, attention_mask, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer(x, attention_mask, generator)
         return x

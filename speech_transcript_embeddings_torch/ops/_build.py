@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/`` on first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds), placed
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of them
+at once, and the objects are linked into ONE shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), placed
 in ``speech_transcript_embeddings_torch/_build/`` (listed in ``.gitignore``)
 under a name keyed by the sources' and flags' hash, and loaded with
 ``ctypes``. Each C entry point returns ``cudaGetLastError()`` after its
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (see the .cu files)
@@ -33,6 +34,7 @@ _SIGNATURES = {
                               _I, _P],
     "ste_flash_rel_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _I, _I, _P],
+    "ste_flash_rel_bwd": [_P] * 13 + [_I] * 7 + [_F, _F, _I, _I, _P],
 }
 
 
@@ -60,21 +62,36 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library for these sources exists.
-    The ptxas report (registers, shared memory, spills) goes to
-    ``_build/nvcc.log``."""
+    """Compile ``csrc/*.cu`` unless the library for these sources exists:
+    one ``nvcc -c`` per source, run in parallel, then one link. The ptxas
+    report (registers, shared memory, spills) goes to ``_build/nvcc.log``."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [(cmd, p.communicate()[0], p.returncode)
+            for cmd, p in zip(cmds, procs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+    (BUILD_DIR / "nvcc.log").write_text("".join(
+        " ".join(cmd) + "\n" + text for cmd, text, _ in logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, text, rc) for cmd, text, rc in logs if rc != 0]
+    if failed:
+        cmd, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)
     return out
 

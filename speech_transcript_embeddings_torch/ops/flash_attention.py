@@ -1,27 +1,30 @@
-"""Relative_key flash attention: CUDA forward kernel and its plain twin.
+"""Relative_key flash attention: CUDA forward and backward kernels and their
+plain twins.
 
-Port of ``speech_transcript_embeddings_tpu/ops/flash_attention.py``, forward
-only (``_fwd_kernel``). The w2v-bert-2.0 conformer's self-attention with the
-Shaw relative_key bias:
+Port of ``speech_transcript_embeddings_tpu/ops/flash_attention.py``
+(``_fwd_kernel`` and ``_bwd_kernel``). The w2v-bert-2.0 conformer's
+self-attention with the Shaw relative_key bias:
 
     s[i, j] = q_s[i]·k[j] + qE[i, clip(j − i, −L, R) + L],   q_s = q/√hd
 
-with ``qE = q_s·Eᵀ``, keys past the clip's valid length at NEG = −1e30, and
-``lse = m + log l`` written for the backward. Same signature and layout as
-the JAX function: q, k, v ``[B·num_heads, T, hd]``, E ``[num_pos, hd]``,
-``kv_mask [B, T]`` a contiguous-prefix mask reduced to one valid length per
-batch row.
+with ``qE = q_s·Eᵀ``, keys past the clip's valid length at NEG = −1e30 (an
+additive mask, as the TPU kernels apply it), and ``lse = m + log l`` kept
+for the backward. Same signature and layout as the JAX function: q, k, v
+``[B·num_heads, T, hd]``, E ``[num_pos, hd]``, ``kv_mask [B, T]`` a
+contiguous-prefix mask reduced to one valid length per batch row.
 
-This PR is inference only: the backward kernel (the TPU's ``_bwd_kernel``)
-comes with training as a ``torch.autograd.Function``, so the wrapper raises
-when grad mode is on and an input requires grad rather than return a result
-without a gradient.
+``flash_attention`` is differentiable: its backward is the K4 kernel
+(``csrc/flash_rel_bwd.cu``) for CUDA tensors and ``rel_attention_bwd_
+reference`` (the same math in plain PyTorch) for CPU tensors. Its
+``residuals`` list keeps the forward's (out, lse) across a remat replay, so
+the replay does not launch the forward kernel again (the JAX
+``save_residuals`` variant).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -69,32 +72,51 @@ def _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max):
                          f"{bh} rows of {num_heads} heads and T={t}")
 
 
+def _require_cuda(name, *tensors):
+    for x in tensors:
+        if x.device != tensors[0].device or x.device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                             f"got {x.device}")
+
+
+def _key_mask(kv_mask, num_heads, t_pad, device) -> torch.Tensor:
+    """``[B·h, 1, t_pad]`` additive key mask: 0 below the clip's length,
+    NEG from it on (the padded keys t..t_pad-1 included)."""
+    lengths = torch.repeat_interleave(_lengths(kv_mask), num_heads)
+    pos = torch.arange(t_pad, device=device)
+    return torch.where(pos[None, None, :] < lengths[:, None, None], 0.0, NEG)
+
+
+def _dist_index(t_rows, t_pad, left_max, right, device) -> torch.Tensor:
+    """``[t_rows, t_pad]`` column of qE for each (query, key) pair."""
+    rows = torch.arange(t_rows, device=device)
+    cols = torch.arange(t_pad, device=device)
+    return torch.clamp(cols[None, :] - rows[:, None], -left_max, right) + left_max
+
+
 def rel_attention_reference(q, k, v, dist_embedding, kv_mask, *,
                             num_heads: int, left_max: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of the kernel → (out ``[B·h, T, hd]`` in q's dtype, lse
-    ``[B·h, T, 1]`` fp32). Follows the TPU kernel's numerics: q_s and qE
-    rounded to q's dtype, fp32 scores and softmax over the keys padded to a
-    multiple of 128 (so a row with no valid key averages over t_pad keys),
-    probabilities rounded to v's dtype for the value product."""
+    """Plain twin of the forward kernel → (out ``[B·h, T, hd]`` in q's
+    dtype, lse ``[B·h, T, 1]`` fp32). Follows the TPU kernel's numerics:
+    q_s and qE rounded to q's dtype, fp32 scores with the additive key mask
+    and softmax over the keys padded to a multiple of 128 (so a row with no
+    valid key averages over t_pad keys), probabilities rounded to v's dtype
+    for the value product. Differentiable by autograd."""
     _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
     bh, t, hd = q.shape
     t_pad = _t_pad(t)
     num_pos = dist_embedding.shape[0]
-    right = num_pos - 1 - left_max
     pad = (0, 0, 0, t_pad - t)
     q_s = q * _scale(q).to(q.device)
     qp, kp, vp = (torch.nn.functional.pad(x, pad).float()
                   for x in (q_s, k, v))
     e = dist_embedding.to(q.dtype).float()
     qe = (qp @ e.T).to(q.dtype).float()                      # [bh, t_pad, P]
-    pos = torch.arange(t_pad, device=q.device)
-    idx = torch.clamp(pos[None, :] - pos[:, None], -left_max, right) + left_max
+    idx = _dist_index(t_pad, t_pad, left_max, num_pos - 1 - left_max, q.device)
     bias = torch.gather(qe, 2, idx[None].expand(bh, t_pad, t_pad))
-    s = qp @ kp.transpose(1, 2) + bias
-    lengths = torch.repeat_interleave(_lengths(kv_mask), num_heads)
-    valid = pos[None, None, :] < lengths[:, None, None]
-    s = torch.where(valid, s, torch.full_like(s, NEG))
+    s = qp @ kp.transpose(1, 2) + bias + _key_mask(kv_mask, num_heads, t_pad,
+                                                   q.device)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = torch.sum(p, dim=-1, keepdim=True)
@@ -103,27 +125,68 @@ def rel_attention_reference(q, k, v, dist_embedding, kv_mask, *,
     return out, (m + torch.log(l))[:, :t]
 
 
+def rel_attention_bwd_reference(q, k, v, dist_embedding, kv_mask, out, lse,
+                                dout, *, num_heads: int, left_max: int
+                                ) -> Tuple[torch.Tensor, ...]:
+    """Plain twin of the backward kernel → (dq, dk, dv in q's dtype, dE in
+    E's dtype), the math of the TPU ``_bwd_kernel``: p = exp(s − lse) from
+    the forward's lse, dd = rowsum(dO∘O), ds = p·(dp − dd); dq and dk take
+    ds rounded to the input dtype, the bias gradient
+    ``dqE[i, clip(j − i) + L] += ds[i, j]`` stays fp32 (padded keys
+    included), dq += round(dqE)·E, dE = Σ dqEᵀ·q_s, and dq is scaled by
+    1/√hd in fp32 and rounded again.
+
+    For a clip with no valid key the TPU kernel's lse is NEG (log t_pad
+    vanishes beside 1e30 in fp32), so p = 1 on every key, not 1/t_pad; this
+    twin and the CUDA kernel reproduce that, where autograd through
+    ``rel_attention_reference`` gives the exact softmax gradient."""
+    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
+    bh, t, hd = q.shape
+    dt = q.dtype
+    t_pad = _t_pad(t)
+    num_pos = dist_embedding.shape[0]
+    pad = (0, 0, 0, t_pad - t)
+    q_s = (q * _scale(q).to(q.device)).float()                # [bh, t, hd]
+    kp, vp = (torch.nn.functional.pad(x, pad).float() for x in (k, v))
+    e = dist_embedding.to(dt).float()
+    do = dout.to(dt).float()
+    dd = torch.sum(do * out.float(), dim=-1, keepdim=True)    # [bh, t, 1]
+    qe = (q_s @ e.T).to(dt).float()                           # [bh, t, P]
+    idx = _dist_index(t, t_pad, left_max, num_pos - 1 - left_max,
+                      q.device)[None].expand(bh, t, t_pad)
+    s = q_s @ kp.transpose(1, 2) + torch.gather(qe, 2, idx) + _key_mask(
+        kv_mask, num_heads, t_pad, q.device)
+    p = torch.exp(s - lse)                                    # [bh, t, t_pad]
+    dv = p.to(dt).float().transpose(1, 2) @ do
+    ds = p * (do @ vp.transpose(1, 2) - dd)
+    ds_c = ds.to(dt).float()
+    dq = ds_c @ kp
+    dk = ds_c.transpose(1, 2) @ q_s
+    dqe = torch.zeros((bh, t, num_pos), dtype=torch.float32,
+                      device=q.device).scatter_add_(2, idx, ds)
+    dq = dq + dqe.to(dt).float() @ e
+    de = torch.einsum("bip,bid->pd", dqe, q_s)
+    dq = (dq.to(dt).float() * (1.0 / math.sqrt(hd))).to(dt)
+    return (dq, dk[:, :t].to(dt), dv[:, :t].to(dt),
+            de.to(dist_embedding.dtype))
+
+
 def flash_attention_fwd(q, k, v, dist_embedding, kv_mask, *,
                         num_heads: int, left_max: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) through the CUDA kernel for CUDA tensors, through the twin
-    for CPU tensors."""
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v, dist_embedding)):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet (training is not "
-            "ported; see ROADMAP.md): call it under torch.no_grad()")
+    """(out, lse) through the forward kernel for CUDA tensors, through the
+    twin for CPU tensors; no gradient (``flash_attention`` differentiates)."""
     if q.device.type == "cpu":
-        return rel_attention_reference(q, k, v, dist_embedding, kv_mask,
-                                       num_heads=num_heads, left_max=left_max)
+        with torch.no_grad():
+            return rel_attention_reference(
+                q, k, v, dist_embedding, kv_mask, num_heads=num_heads,
+                left_max=left_max)
     _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
-    for x in (q, k, v, dist_embedding, kv_mask):
-        if x.device != q.device or x.device.type != "cuda":
-            raise ValueError(f"flash_attention: expected CUDA tensors on one "
-                             f"device, got {x.device}")
+    _require_cuda("flash_attention", q, k, v, dist_embedding, kv_mask)
     bh, t, hd = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    e = dist_embedding.to(q.dtype).contiguous()
+    q, k, v = q.detach().contiguous(), k.detach().contiguous(), \
+        v.detach().contiguous()
+    e = dist_embedding.detach().to(q.dtype).contiguous()
     lengths = _lengths(kv_mask).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
@@ -141,9 +204,94 @@ def flash_attention_fwd(q, k, v, dist_embedding, kv_mask, *,
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd(q, k, v, dist_embedding, kv_mask, out, lse, dout, *,
+                        num_heads: int, left_max: int
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dE) through the backward kernel for CUDA tensors,
+    through ``rel_attention_bwd_reference`` for CPU tensors. ``dist_
+    embedding`` is E in the dtype the forward used; dE comes back in it."""
+    if q.device.type == "cpu":
+        return rel_attention_bwd_reference(
+            q, k, v, dist_embedding, kv_mask, out, lse, dout,
+            num_heads=num_heads, left_max=left_max)
+    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
+    _require_cuda("flash_attention_bwd", q, k, v, dist_embedding, kv_mask,
+                  out, lse, dout)
+    if dist_embedding.dtype != q.dtype:
+        raise ValueError(f"dist_embedding dtype {dist_embedding.dtype} != "
+                         f"{q.dtype}: cast E before the op")
+    bh, t, hd = q.shape
+    num_pos = dist_embedding.shape[0]
+    q, k, v, e = (x.detach().contiguous() for x in (q, k, v, dist_embedding))
+    do = dout.detach().to(q.dtype).contiguous()
+    lse = lse.detach().float().contiguous()
+    # dd = rowsum(dO∘O) in fp32 (outside the kernel, as in the JAX wrapper)
+    dd = torch.sum(do.float() * out.detach().float(), dim=-1).contiguous()
+    lengths = _lengths(kv_mask).contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    q_tiles = -(-t // 64)                   # the kernel's query tile (kBM)
+    de_part = torch.empty((bh * q_tiles, num_pos, hd), dtype=torch.float32,
+                          device=q.device)
+    qe = torch.empty((bh, t, num_pos), dtype=torch.float32, device=q.device)
+    device, stream = _build.launch_args(q)
+    code = _build.library().ste_flash_rel_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+        lengths.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qe.data_ptr(),
+        de_part.data_ptr(), bh,
+        t, _t_pad(t), hd, num_pos, left_max, num_heads, float(_scale(q)),
+        1.0 / math.sqrt(hd), _DTYPES[q.dtype], device, stream)
+    _build.check(code, "ste_flash_rel_bwd")
+    flash_attention_bwd.launches += 1
+    de = torch.sum(de_part, dim=0).to(e.dtype)
+    return dq, dk, dv, de
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashApply(torch.autograd.Function):
+    """Identity on the forward kernel's ``out``, the backward kernel in
+    reverse (the JAX ``_flash_apply``): the forward kernel runs outside the
+    Function, so a remat replay can reuse its (out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, e, kv_mask, out, lse, num_heads, left_max):
+        ctx.save_for_backward(q, k, v, e, kv_mask, out, lse)
+        ctx.kw = dict(num_heads=num_heads, left_max=left_max)
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, e, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv, de = flash_attention_bwd(q, k, v, e, kv_mask, out, lse,
+                                             dout, **ctx.kw)
+        return dq, dk, dv, de, None, None, None, None, None
+
+
 def flash_attention(q, k, v, dist_embedding, kv_mask, *, num_heads: int,
-                    left_max: int) -> torch.Tensor:
+                    left_max: int, residuals: Optional[list] = None
+                    ) -> torch.Tensor:
     """Relative_key attention outputs ``[B·num_heads, T, hd]`` (pre
-    out-projection), q unscaled — the JAX ``flash_attention`` signature."""
-    return flash_attention_fwd(q, k, v, dist_embedding, kv_mask,
-                               num_heads=num_heads, left_max=left_max)[0]
+    out-projection), q unscaled — the JAX ``flash_attention`` signature.
+    Pass E in the compute dtype (``dist_embedding.to(q.dtype)``), as the
+    JAX module does, so autograd carries dE to an fp32 parameter.
+
+    ``residuals`` is the port's form of the JAX ``save_residuals``: a list
+    that outlives a remat replay. Empty, the call stores the forward
+    kernel's (out, lse) in it; filled, the call (the replay) reuses them and
+    launches no forward kernel."""
+    if not (torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, v, dist_embedding))):
+        return flash_attention_fwd(q, k, v, dist_embedding, kv_mask,
+                                   num_heads=num_heads, left_max=left_max)[0]
+    e = dist_embedding.to(q.dtype)
+    if residuals:
+        out, lse = residuals
+    else:
+        out, lse = flash_attention_fwd(q, k, v, e, kv_mask,
+                                       num_heads=num_heads, left_max=left_max)
+        if residuals is not None:
+            residuals.extend((out, lse))
+    return _FlashApply.apply(q, k, v, e, kv_mask, out, lse, num_heads,
+                             left_max)

@@ -1,0 +1,92 @@
+"""Training CLI of the port:
+
+    python -m speech_transcript_embeddings_torch.train [preset=NAME] \\
+        [device=cuda|cpu] [k=v ...]
+
+The presets and the dotted ``k=v`` overrides are those of
+``speech_transcript_embeddings_tpu.train`` (that module imports the JAX
+training loop, so the table is copied here and a test holds the two equal).
+``device`` defaults to ``cuda``; ``cuda`` without a card raises, and
+nothing falls back to the CPU. Examples:
+
+    # tiny synthetic smoke run on the CPU
+    python -m speech_transcript_embeddings_torch.train preset=tiny \\
+        device=cpu train.num_epochs=1 \\
+        train.output_dir=speech_transcript_embeddings_torch/_build/torch_smoke
+
+    # the retrieval recipe at full width on one GPU (synthetic data)
+    python -m speech_transcript_embeddings_torch.train preset=retrieval \\
+        data.synthetic_length_profile=cv \\
+        train.output_dir=speech_transcript_embeddings_torch/_build/torch_ret
+"""
+
+from __future__ import annotations
+
+import sys
+
+from speech_transcript_embeddings_torch import config as config_lib
+
+_MPNET_TOKENIZER = "sentence-transformers/paraphrase-multilingual-mpnet-base-v2"
+PRESETS = ("tiny", "flagship", "flagship-roberta", "retrieval")
+
+
+def build_config(argv) -> config_lib.ExperimentConfig:
+    """The JAX CLI's ``build_config``: a preset, then the overrides."""
+    argv = list(argv)
+    if any(a in ("--help", "-h", "help") for a in argv):
+        raise SystemExit(__doc__)
+    preset = None
+    for item in list(argv):
+        if item.startswith("preset="):
+            preset = item.split("=", 1)[1]
+            argv.remove(item)
+    c = config_lib
+    cfg = c.ExperimentConfig()
+    partial = c.FreezeConfig(mode="partial", text_layers_to_unfreeze=5,
+                             audio_layers_to_unfreeze=5)
+    if preset == "tiny":
+        cfg = c.ExperimentConfig(
+            model=c.tiny_model_config(),
+            data=c.DataConfig(
+                dataset="synthetic", batch_size=8, max_text_length=16,
+                audio_buckets=(16000, 48000), max_audio_samples=48000,
+                num_synthetic_samples=64),
+            optimizer=c.OptimizerConfig(learning_rate=1e-3, warmup_steps=5),
+            train=c.TrainConfig(num_epochs=2, accumulation_steps=1,
+                                plot_every=1))
+    elif preset == "flagship":
+        cfg = c.ExperimentConfig(
+            model=c.flagship_model_config(), freeze=partial,
+            optimizer=c.OptimizerConfig(mu_dtype="bfloat16"),
+            data=c.DataConfig(tokenizer=_MPNET_TOKENIZER))
+    elif preset == "retrieval":
+        cfg = c.ExperimentConfig(
+            model=c.retrieval_model_config(), freeze=partial,
+            loss=c.LossConfig(kind="global"),
+            optimizer=c.OptimizerConfig(mu_dtype="bfloat16"),
+            data=c.DataConfig(tokenizer=_MPNET_TOKENIZER))
+    elif preset == "flagship-roberta":
+        cfg = c.ExperimentConfig(
+            model=c.roberta_model_config(), freeze=partial,
+            optimizer=c.OptimizerConfig(learning_rate=3e-5,
+                                        mu_dtype="bfloat16"),
+            data=c.DataConfig(
+                tokenizer="sentence-transformers/all-roberta-large-v1"))
+    elif preset is not None:
+        raise SystemExit(f"Unknown preset {preset!r} (use {'|'.join(PRESETS)})")
+    return cfg.with_overrides(config_lib.parse_overrides(argv))
+
+
+def main(argv=None) -> dict:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    device = "cuda"
+    for item in list(argv):
+        if item.startswith("device="):
+            device = item.split("=", 1)[1]
+            argv.remove(item)
+    from speech_transcript_embeddings_torch.training.loop import run_experiment
+    return run_experiment(build_config(argv), device=device)
+
+
+if __name__ == "__main__":
+    main()

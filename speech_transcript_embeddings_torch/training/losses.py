@@ -1,0 +1,118 @@
+"""Contrastive losses.
+
+Port of ``speech_transcript_embeddings_tpu/training/losses.py``:
+
+* ``pairwise`` — 2-way InfoNCE as cross-entropy over ``[s_pos, s_neg] / τ``
+  with an optional corrupt penalty (reference parity);
+* ``global`` — in-batch-negative InfoNCE: each clip scored against every
+  clean and every corrupted transcript of the batch. This port runs one
+  process: the cross-device gather (``axis_name``) raises until data
+  parallel training is ported.
+
+Word alignment is not ported, so ``alignment_scores`` is always None here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from speech_transcript_embeddings_torch.config import LossConfig
+
+
+class LossAux(NamedTuple):
+    s_pos: torch.Tensor    # [B] cosine(audio, clean text)
+    s_neg: torch.Tensor    # [B] cosine(audio, corrupted text)
+
+
+def to_human_readable(cosine: torch.Tensor, temperature: float = 0.1,
+                      scale: str = "prob") -> torch.Tensor:
+    """Raw cosine (−1..1) → a 0..1 score: sigmoid(cos/τ), or (cos + 1)/2."""
+    if scale == "0to1":
+        return (cosine + 1.0) * 0.5
+    if scale == "prob":
+        return torch.sigmoid(cosine / temperature)
+    raise ValueError(f"Unknown scale {scale!r}")
+
+
+def _alignment_factor(alignment_scores, alignment_weight: float):
+    if alignment_scores is None:
+        return None
+    return 1.0 - torch.sigmoid(alignment_scores.mean(dim=1)) * alignment_weight
+
+
+def pairwise_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
+                      alignment_scores=None):
+    """CE over the 2-way choice {clean, corrupt} per sample."""
+    s_pos = torch.sum(audio * text_pos, dim=-1)
+    s_neg = torch.sum(audio * text_neg, dim=-1)
+    logits = torch.stack([s_pos, s_neg], dim=1) / cfg.temperature
+    per_sample = -F.log_softmax(logits, dim=1)[:, 0]
+    factor = _alignment_factor(alignment_scores, cfg.alignment_weight)
+    if factor is not None:
+        per_sample = per_sample * factor
+    loss = per_sample.mean()
+    if cfg.corrupt_gamma > 0:
+        loss = loss + cfg.corrupt_gamma * F.relu(s_neg).mean()
+    return loss, LossAux(s_pos=s_pos, s_neg=s_neg)
+
+
+def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
+                    alignment_scores=None, axis_name: Optional[str] = None):
+    """In-batch-negative InfoNCE: row i's candidates are every clean and
+    every corrupted transcript of the batch; its target is its own clean
+    transcript."""
+    if axis_name is not None:
+        raise NotImplementedError(
+            "global_info_nce across processes is not ported yet (ROADMAP.md, "
+            "data parallel): call it with axis_name=None")
+    b = audio.shape[0]
+    cand = torch.cat([text_pos, text_neg], dim=0)             # [2B, D]
+    logits = (audio @ cand.T) / cfg.temperature               # [B, 2B]
+    idx = torch.arange(b, device=audio.device)
+    per_sample = -F.log_softmax(logits, dim=-1)[idx, idx]
+    factor = _alignment_factor(alignment_scores, cfg.alignment_weight)
+    if factor is not None:
+        per_sample = per_sample * factor
+    loss = per_sample.mean()
+    s_pos = torch.sum(audio * text_pos, dim=-1)
+    s_neg = torch.sum(audio * text_neg, dim=-1)
+    if cfg.corrupt_gamma > 0:
+        loss = loss + cfg.corrupt_gamma * F.relu(s_neg).mean()
+    return loss, LossAux(s_pos=s_pos, s_neg=s_neg)
+
+
+def global_per_sample_masked(cfg: LossConfig, text_pos, text_neg, audio,
+                             example_mask, alignment_scores=None):
+    """Per-sample in-batch InfoNCE for evaluation under masked tails: the
+    candidate columns of padded rows (``example_mask`` 0) are removed
+    before the log-softmax. Entries of padded rows are meaningless; the
+    caller's mask zeroes them."""
+    b = audio.shape[0]
+    cand = torch.cat([text_pos, text_neg], dim=0)
+    logits = (audio @ cand.T) / cfg.temperature
+    cmask = torch.cat([example_mask, example_mask], dim=0) > 0
+    logits = torch.where(cmask[None, :], logits,
+                         torch.finfo(logits.dtype).min)
+    idx = torch.arange(b, device=audio.device)
+    per = -F.log_softmax(logits, dim=-1)[idx, idx]
+    factor = _alignment_factor(alignment_scores, cfg.alignment_weight)
+    if factor is not None:
+        per = per * factor
+    if cfg.corrupt_gamma > 0:
+        per = per + cfg.corrupt_gamma * F.relu(torch.sum(audio * text_neg, -1))
+    return per
+
+
+def compute_loss(cfg: LossConfig, output, axis_name: Optional[str] = None):
+    """Dispatch on ``cfg.kind`` given a ``PosNegOutput``."""
+    if cfg.kind == "pairwise":
+        return pairwise_info_nce(cfg, output.text_pos, output.text_neg,
+                                 output.audio, output.alignment_scores)
+    if cfg.kind == "global":
+        return global_info_nce(cfg, output.text_pos, output.text_neg,
+                               output.audio, output.alignment_scores,
+                               axis_name)
+    raise ValueError(f"Unknown loss kind {cfg.kind!r}")

@@ -3,6 +3,8 @@ path of the wrapper) against the JAX ``flash_attention`` in interpret mode,
 with the shapes of tests/test_flash_attention.py plus a clip with no valid
 frame."""
 
+import functools
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -88,14 +90,23 @@ def test_twin_matches_jax_bf16():
 
 
 def test_wrapper_raises_without_backward():
+    """The wrapper is differentiable now (the name predates the backward):
+    under grad mode every input gets a finite gradient of its own shape and
+    dtype, through the twins on the CPU, with no kernel launch counted."""
     q, k, v, e, mask = _inputs((T, 100))
     args = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, e)]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        fa.flash_attention(*args, torch.from_numpy(mask), num_heads=NH,
-                           left_max=L)
+    out = fa.flash_attention(*args, torch.from_numpy(mask), num_heads=NH,
+                             left_max=L)
+    assert out.requires_grad
+    out.square().sum().backward()
+    for x in args:
+        assert x.grad is not None and x.grad.shape == x.shape
+        assert x.grad.dtype == x.dtype and torch.isfinite(x.grad).all()
+        assert x.grad.abs().max() > 0
+    assert fa.flash_attention_bwd.launches == 0
     with torch.no_grad():
-        fa.flash_attention(*args, torch.from_numpy(mask), num_heads=NH,
-                           left_max=L)
+        assert not fa.flash_attention(*args, torch.from_numpy(mask),
+                                      num_heads=NH, left_max=L).requires_grad
 
 
 def test_wrapper_rejects_bad_inputs_and_other_devices():
@@ -112,3 +123,170 @@ def test_wrapper_rejects_bad_inputs_and_other_devices():
         fa.flash_attention(*meta, torch.from_numpy(mask).to("meta"),
                            num_heads=NH, left_max=L)
     assert fa.flash_attention_fwd.launches == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads_cached(t, lengths, seed, dtype_name):
+    """``jax.grad`` of Σ out·w for the inputs of ``_inputs(lengths, seed,
+    t)`` (interpret mode is slow: tests that share inputs share this)."""
+    import jax
+    q, k, v, e, mask = _inputs(lengths, seed=seed, t=t)
+    w = np.random.default_rng(seed + 1).normal(size=q.shape).astype(np.float32)
+    dtype = getattr(jnp, dtype_name)
+
+    def loss(q, k, v, e):
+        out = jax_flash(q, k, v, e, jnp.asarray(mask), num_heads=NH,
+                        left_max=L, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * w)
+    grads = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(x, dtype) for x in (q, k, v, e)))
+    return w, [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _torch_grads(fn, q, k, v, e, mask, w, dtype=torch.float32, **kw):
+    args = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v, e)]
+    out = fn(*args, torch.from_numpy(mask), num_heads=NH, left_max=L, **kw)
+    out = out[0] if isinstance(out, tuple) else out
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    return [a.grad.float().numpy() for a in args], args
+
+
+@pytest.mark.parametrize("t,lengths", [(T, (T, 100)), (T, (T, 0)),
+                                       (128, (128, 77)), (256, (256, 200))],
+                         ids=["ragged", "zero_length_row", "one_tile",
+                              "two_tiles"])
+def test_backward_matches_jax_grad(t, lengths):
+    """dq, dk, dv and dE of the wrapper (its CPU backward is the twin of K4)
+    against ``jax.grad`` of the JAX function in interpret mode; fp32 at
+    rtol 1e-4 / atol 1e-5, as tests/test_flash_attention.py holds the
+    kernel's gradients. A clip with no valid frame has p = 1 on all 256
+    keys in JAX's backward (see the test below), so its gradients are 256×
+    larger and the absolute floor scales with them."""
+    q, k, v, e, mask = _inputs(lengths, seed=4, t=t)
+    w, ref = _jax_grads_cached(t, lengths, 4, "float32")
+    got, _ = _torch_grads(fa.flash_attention, q, k, v, e, mask, w)
+    atol = 1e-5 * (fa._t_pad(t) if 0 in lengths else 1)
+    for name, a, b in zip(("dq", "dk", "dv", "dE"), got, ref):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=atol, err_msg=name)
+
+
+def test_backward_matches_jax_grad_bf16():
+    """bf16 inputs, gradients in bf16 (dE in E's dtype): 2e-2 of the
+    largest gradient, bf16's resolution after the fp32 accumulations."""
+    q, k, v, e, mask = _inputs((T, 100), seed=6)
+    w, ref = _jax_grads_cached(T, (T, 100), 6, "bfloat16")
+    got, args = _torch_grads(fa.flash_attention, q, k, v, e, mask, w,
+                             torch.bfloat16)
+    assert all(a.grad.dtype == torch.bfloat16 for a in args)
+    for name, a, b in zip(("dq", "dk", "dv", "dE"), got, ref):
+        np.testing.assert_allclose(a, b, rtol=2e-2,
+                                   atol=2e-2 * np.abs(b).max(), err_msg=name)
+
+
+def test_autograd_of_the_additive_twin_on_a_clip_with_no_frame():
+    """The twin masks additively, as the TPU kernels do, so autograd through
+    it sends the padded keys' gradient into the bias (dE) on a clip with no
+    valid frame; a ``torch.where`` mask sent none. JAX's backward reads p
+    from lse = NEG there (log 256 vanishes beside 1e30), so p = 1 where
+    the exact softmax has 1/256: on that clip its gradients are 256×
+    autograd's, on the other clip they agree."""
+    lengths = (T, 0)
+    q, k, v, e, mask = _inputs(lengths, seed=4)
+    w, ref = _jax_grads_cached(T, lengths, 4, "float32")
+    per_clip = []
+    for c in range(2):
+        rows = slice(c * NH, (c + 1) * NH)
+        got, _ = _torch_grads(fa.rel_attention_reference, q[rows], k[rows],
+                              v[rows], e, mask[c:c + 1], w[rows])
+        per_clip.append(got)
+    assert np.abs(per_clip[1][3]).max() > 0
+    for i, name in enumerate(("dq", "dk", "dv")):
+        np.testing.assert_allclose(per_clip[0][i], ref[i][:NH], rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(256 * per_clip[1][i], ref[i][NH:],
+                                   rtol=1e-4, atol=256e-5, err_msg=name)
+    np.testing.assert_allclose(per_clip[0][3] + 256 * per_clip[1][3], ref[3],
+                               rtol=1e-4, atol=256e-5, err_msg="dE")
+
+
+@pytest.mark.parametrize("t,lengths", [(T, (T, 100)), (T, (T, 0)),
+                                       (128, (128, 77)), (256, (256, 200))],
+                         ids=["ragged", "zero_length_row", "one_tile",
+                              "two_tiles"])
+def test_additive_mask_forward_is_bitwise_the_where_mask(t, lengths):
+    """The additive key mask leaves the twin's forward bit for bit where a
+    ``torch.where`` mask put it (|s| ≪ ulp(1e30), so s + NEG == NEG)."""
+    q, k, v, e, mask = _inputs(lengths, t=t)
+    qt, kt, vt, et = (torch.from_numpy(x) for x in (q, k, v, e))
+    out, lse = fa.rel_attention_reference(qt, kt, vt, et, torch.from_numpy(
+        mask), num_heads=NH, left_max=L)
+    t_pad = fa._t_pad(t)
+    pad = (0, 0, 0, t_pad - t)
+    qp, kp, vp = (torch.nn.functional.pad(x, pad)
+                  for x in (qt * fa._scale(qt), kt, vt))
+    qe = qp @ et.T
+    bias = torch.gather(qe, 2, fa._dist_index(t_pad, t_pad, L, R, "cpu")[
+        None].expand(qp.shape[0], t_pad, t_pad))
+    lens = torch.repeat_interleave(torch.tensor(lengths), NH)
+    s = torch.where(torch.arange(t_pad)[None, None, :] < lens[:, None, None],
+                    qp @ kp.transpose(1, 2) + bias, fa.NEG)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    assert torch.equal(out, ((p @ vp) / l)[:, :t])
+    assert torch.equal(lse, (m + torch.log(l))[:, :t])
+
+
+def test_save_residuals_matches_plain(monkeypatch):
+    """The ``residuals`` list (the JAX ``save_residuals``): the first call
+    stores the forward's (out, lse) in it; a call with the filled list, as
+    a remat replay makes it, runs no forward and gives the same output and
+    gradients, bit for bit, as a call without the list."""
+    q, k, v, e, mask = _inputs((T, 100), seed=10)
+    w = np.random.default_rng(11).normal(size=q.shape).astype(np.float32)
+    plain, _ = _torch_grads(fa.flash_attention, q, k, v, e, mask, w)
+    residuals = []
+    first, _ = _torch_grads(fa.flash_attention, q, k, v, e, mask, w,
+                            residuals=residuals)
+    assert len(residuals) == 2 and residuals[1].shape == (2 * NH, T, 1)
+    monkeypatch.setattr(fa, "flash_attention_fwd", None)   # must not run
+    replay, _ = _torch_grads(fa.flash_attention, q, k, v, e, mask, w,
+                             residuals=residuals)
+    for name, a, b, c in zip(("dq", "dk", "dv", "dE"), first, replay, plain):
+        np.testing.assert_array_equal(a, c, err_msg=name)
+        np.testing.assert_array_equal(b, c, err_msg=name)
+
+
+def test_module_flash_matches_plain_path():
+    """The port's RelPositionAttention with use_flash_attention flipped:
+    the same forward and parameter gradients (fp32, the tolerances of
+    tests/test_flash_attention.py's module test)."""
+    import dataclasses
+
+    from speech_transcript_embeddings_tpu.config import AudioEncoderConfig
+    from speech_transcript_embeddings_torch.models.audio_encoder import (
+        RelPositionAttention,
+    )
+    cfg = AudioEncoderConfig(
+        feature_dim=8, hidden_size=NH * HD, num_layers=1, num_heads=NH,
+        intermediate_size=64, conv_kernel_size=7, left_max_rel_pos=L,
+        right_max_rel_pos=R, attention_dropout=0.0, apply_spec_augment=False)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, T, NH * HD, generator=g)
+    mask = (torch.arange(T)[None, :] < torch.tensor([[T], [100]])).int()
+    grads, outs = [], []
+    for flash in (False, True):
+        mod = RelPositionAttention(
+            dataclasses.replace(cfg, use_flash_attention=flash), torch.float32)
+        gi = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for p in mod.parameters():
+                p.copy_(torch.randn(p.shape, generator=gi) * 0.2)
+        out = mod(x, mask)
+        out.square().sum().backward()
+        outs.append(out.detach())
+        grads.append({n: p.grad for n, p in mod.named_parameters()})
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-5)
+    for name, gx in grads[0].items():
+        torch.testing.assert_close(grads[1][name], gx, rtol=2e-3, atol=1e-4,
+                                   msg=name)

@@ -88,3 +88,59 @@ def test_flash_kernel_zero_length_row_is_finite(cuda):
     torch.testing.assert_close(out[2:], (v[2:].sum(1, keepdim=True) / 256)
                                .expand_as(out[2:]), rtol=1e-4, atol=1e-5)
 
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("t,hd,nh,left,right,short", [
+    (150, 16, 2, 9, 3, 50), (128, 12, 4, 8, 2, 42), (1536, 64, 16, 64, 8, 512),
+    (200, 128, 1, 0, 5, 66), (150, 16, 2, 9, 3, 0)],
+    ids=["ragged", "hd12", "t1536", "hd128", "zero_length_row"])
+def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left,
+                                            right, short):
+    """K4 against the twin's backward on the same (out, lse): dq, dk, dv and
+    dE within ``tol`` of the largest reference gradient (the order of the
+    fp32 sums differs, dE most: it sums over every row and query)."""
+    g = torch.Generator().manual_seed(t + hd + short)
+    b = 2
+    q, k, v, dout = (torch.randn(b * nh, t, hd, generator=g).to(cuda, dtype)
+                     for _ in range(4))
+    e = (torch.randn(left + right + 1, hd, generator=g) * 0.3).to(cuda, dtype)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
+    kw = dict(num_heads=nh, left_max=left)
+    out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, e, mask, out, lse, dout, **kw)
+    assert fa.flash_attention_bwd.launches == before + 1
+    ref = fa.rel_attention_bwd_reference(q, k, v, e, mask, out, lse, dout,
+                                         **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv", "dE"), got, ref):
+        assert a.dtype == r.dtype == dtype and a.shape == r.shape, name
+        assert torch.isfinite(a).all(), name
+        scale = r.float().abs().max().clamp_min(1e-30)
+        err = ((a.float() - r.float()).abs().max() / scale).item()
+        assert err <= tol, (name, err)
+
+
+def test_flash_autograd_uses_both_kernels(cuda):
+    """``flash_attention`` under grad mode: one forward and one backward
+    launch, and the gradients of its twin path on the CPU (fp32, 1e-4)."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(4, 150, 16, generator=g) for _ in range(3))
+    e = torch.randn(13, 16, generator=g) * 0.3
+    mask = (torch.arange(150)[None, :] < torch.tensor([[150], [70]])).float()
+    grads = []
+    for device in ("cpu", cuda):
+        args = [x.to(device).detach().requires_grad_()
+                for x in (q, k, v, e)]
+        f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+        out = fa.flash_attention(*args, mask.to(device), num_heads=2,
+                                 left_max=9)
+        out.square().sum().backward()
+        if device != "cpu":
+            assert fa.flash_attention_fwd.launches == f0 + 1
+            assert fa.flash_attention_bwd.launches == b0 + 1
+        grads.append([a.grad.cpu() for a in args])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)

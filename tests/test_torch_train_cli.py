@@ -1,0 +1,145 @@
+"""The port's training CLI: its preset table equals the JAX CLI's, a tiny
+run on the CPU writes a ``final_model`` that the port's serving path loads,
+and the fields the loop cannot honour raise."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from speech_transcript_embeddings_tpu import train as jax_train
+from speech_transcript_embeddings_torch import checkpoints
+from speech_transcript_embeddings_torch import train as torch_train
+from speech_transcript_embeddings_torch.inference.embed import Embedder
+from speech_transcript_embeddings_torch.models.dual_encoder import init_model
+from speech_transcript_embeddings_torch.training import loop
+
+HEADS_OFF = ["model.heads.use_cross_modal=false",
+             "model.heads.use_word_alignment=false"]
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["preset=tiny"], ["preset=flagship"], ["preset=flagship-roberta"],
+    ["preset=retrieval"],
+    ["preset=retrieval", "data.synthetic_length_profile=cv",
+     "train.num_epochs=1", "optimizer.warmup_steps=2"],
+    ["preset=tiny", "loss.kind=global", "freeze.frozen_dtype=bfloat16",
+     "model.audio.remat_policy=save_hot2"] + HEADS_OFF,
+], ids=["default", "tiny", "flagship", "flagship-roberta", "retrieval",
+        "retrieval_overrides", "tiny_overrides"])
+def test_build_config_equals_the_jax_cli(argv):
+    assert torch_train.build_config(argv) == jax_train.build_config(argv)
+
+
+def test_unknown_preset_exits():
+    with pytest.raises(SystemExit, match="Unknown preset"):
+        torch_train.build_config(["preset=huge"])
+
+
+def test_tiny_run_on_cpu_writes_a_servable_final_model(tmp_path):
+    out = tmp_path / "run"
+    res = torch_train.main([
+        "preset=tiny", "device=cpu", "train.num_epochs=1",
+        f"train.output_dir={out}", "data.num_synthetic_samples=32"]
+        + HEADS_OFF)
+    assert res["n_trainable"] == res["n_params"] > 0   # 2 layers, 5 unfrozen
+    # one step-log entry per micro-step at the default log interval
+    losses = [s["loss"] for s in res["step_log"]]
+    assert len(losses) == res["epochs"][0]["train_batches"] >= 2
+    assert res["epochs"][0]["warm_clips_per_sec"] > 0
+    assert np.isfinite(losses).all()
+    val = res["epochs"][0]["val_metrics"]
+    assert np.isfinite(val["loss"]) and res["epochs"][0]["eval_batches"] >= 1
+    assert res["state"].optimizer.count == len(losses)
+    path = out / "final_model"
+    meta = checkpoints.load_metadata(str(path))
+    assert meta["kind"] == "torch_params"
+    assert json.loads((out / "config.json").read_text())["train"][
+        "num_epochs"] == 1
+    assert "Training completed!" in (out / "training.log").read_text()
+    # trainable leaves are saved in fp32
+    state = torch.load(path / "model.pt", weights_only=True)
+    assert all(v.dtype == torch.float32 for v in state.values())
+    emb = Embedder.from_checkpoint(str(path), device="cpu")
+    texts = emb.embed_texts(["casa tempo dia", "mar sol"])
+    rng = np.random.default_rng(0)
+    audio = emb.embed_audios([rng.normal(size=20000).astype(np.float32) * 0.1])
+    for e in (texts, audio):
+        assert np.isfinite(e).all()
+        np.testing.assert_allclose(np.linalg.norm(e, axis=1), 1, atol=1e-5)
+    # the trained weights, not a fresh init, are what is served, and what
+    # train.init_checkpoint loads into a training-form model
+    trained = res["state"].model.state_dict()
+    for k, v in emb.model.state_dict().items():
+        assert torch.equal(v.float(), trained[k].float()), k
+    fresh = init_model(res["cfg"].model, torch.Generator().manual_seed(5),
+                       train=True)
+    checkpoints.load_into(str(path), fresh)
+    for k, v in fresh.state_dict().items():
+        assert v.dtype == torch.float32 and torch.equal(v, trained[k]), k
+
+
+def test_cuda_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        torch_train.main(["preset=tiny", f"train.output_dir={tmp_path}"]
+                         + HEADS_OFF)
+
+
+@pytest.mark.parametrize("override,match", [
+    ("train.validate_gradients=true", "validate_gradients"),
+    ("train.fault_inject_preempt_at=3", "fault_inject_preempt_at"),
+    ("mesh.multihost=true", "multihost"),
+    ("mesh.num_data=2", "data and tensor parallel"),
+])
+def test_fields_the_loop_cannot_honour_raise(tmp_path, override, match):
+    cfg = torch_train.build_config(
+        ["preset=tiny", f"train.output_dir={tmp_path}", override] + HEADS_OFF)
+    with pytest.raises(NotImplementedError, match=match):
+        loop.check_supported(cfg, torch.device("cpu"))
+
+
+def test_resume_from_an_existing_latest_raises(tmp_path):
+    os.makedirs(tmp_path / "latest")
+    (tmp_path / "latest" / "metadata.json").write_text("{}")
+    cfg = torch_train.build_config(
+        ["preset=tiny", f"train.output_dir={tmp_path}", "train.resume=true"]
+        + HEADS_OFF)
+    with pytest.raises(NotImplementedError, match="resume"):
+        loop.check_supported(cfg, torch.device("cpu"))
+
+
+def test_a_trained_bf16_model_loads_into_serving_storage(tmp_path):
+    """Training stores the trainable split in fp32 and the frozen split in
+    its frozen dtype; ``load_checkpoint`` casts every Dense and Embed weight
+    to its compute dtype (bf16 in the encoders), as serving stores it, and
+    keeps LayerNorm, distance embeddings and depthwise kernels in fp32."""
+    from speech_transcript_embeddings_torch.models.layers import Dense, Embed
+    from speech_transcript_embeddings_torch.training.train_step import (
+        create_train_state,
+    )
+    cfg = torch_train.build_config(
+        ["preset=tiny", "model.dtype=bfloat16", "freeze.mode=partial",
+         "freeze.audio_layers_to_unfreeze=1",
+         "freeze.text_layers_to_unfreeze=1"] + HEADS_OFF)
+    model = init_model(cfg.model, torch.Generator().manual_seed(0),
+                       train=True)
+    state = create_train_state(model, cfg, total_steps=1)
+    assert {p.dtype for p in state.trainable.values()} == {torch.float32}
+    assert {p.dtype for p in state.frozen.values()} == {torch.bfloat16}
+    checkpoints.save_checkpoint(str(tmp_path / "m"), model, cfg)
+    _, served = checkpoints.load_checkpoint(str(tmp_path / "m"))
+    trained = model.state_dict()
+    dense = [(n, m) for n, m in served.named_modules()
+             if isinstance(m, (Dense, Embed))]
+    for name, mod in dense:        # the heads compute, and store, in fp32
+        assert mod.weight.dtype == mod.dtype, name
+    assert sum(m.weight.dtype == torch.bfloat16 for _, m in dense) > 20
+    for name, p in served.named_parameters():
+        if p.dtype == torch.float32:
+            assert torch.equal(p, trained[name].float()), name
+        else:
+            assert torch.equal(p, trained[name].to(torch.bfloat16)), name

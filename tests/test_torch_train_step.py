@@ -1,0 +1,192 @@
+"""The port's train and eval steps against the JAX package's
+``make_train_step`` / ``make_eval_step`` on the same bridged weights: tiny
+config, fp32 compute, a 2-block audio stack with flash attention (JAX's
+Pallas kernels in interpret mode, the port's twins), partial freeze (1 of 2
+blocks trainable), both loss kinds, accumulation 1 and 2, warmup 0 and 1,
+and the frozen split and Adam's first moment in fp32 and in bf16.
+
+Tolerances: loss, grad norm and the human-readable similarities rtol 1e-4
+(fp32 through both encoders, as the port's encoder tests);
+every updated trainable leaf: 99.9% of its elements within 1e-5 and all
+within 0.25·lr (Adam's first steps move a weight by ≈lr = 1e-3 along
+sign(g), so 1e-5 is 1% of a step; it covers a bf16 first moment rounding
+one ulp apart in the two frameworks. The wider bound is for the rare
+element whose gradient is near Adam's eps = 1e-8, where g/(|g| + eps)
+turns a small relative error of g into a visible share of a step); frozen
+leaves
+bit-identical. Two kinds of leaf get a gradient of exactly zero in exact
+arithmetic, because a softmax ignores a shift shared by all its inputs: the
+attention key biases and the attentive-pooling score bias. Both frameworks
+see rounding noise there, which Adam scales up to as much as ±lr, so those
+leaves are held to 2.5·lr. The eval sums: atol 1e-4, the tolerance the
+port's Embedder test holds embeddings to.
+"""
+
+ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias")
+
+import dataclasses
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from speech_transcript_embeddings_tpu.config import (
+    DataConfig, ExperimentConfig, FreezeConfig, LossConfig, OptimizerConfig,
+    TrainConfig, tiny_model_config,
+)
+from speech_transcript_embeddings_tpu.data.pipeline import DataPipeline
+from speech_transcript_embeddings_tpu.data.sources import SyntheticSource
+from speech_transcript_embeddings_tpu.data.tokenizers import SimpleWordTokenizer
+from speech_transcript_embeddings_tpu.models.dual_encoder import (
+    DualEncoderModel as JaxModel, init_params,
+)
+from speech_transcript_embeddings_tpu.ops.frontend import LogMelFrontend
+from speech_transcript_embeddings_tpu.training import optimizer as jopt
+from speech_transcript_embeddings_tpu.training import train_step as jts
+from speech_transcript_embeddings_torch import bridge
+from speech_transcript_embeddings_torch.models.dual_encoder import (
+    DualEncoderModel,
+)
+from speech_transcript_embeddings_torch.ops import make_frontend
+from speech_transcript_embeddings_torch.training import train_step as tts
+
+LR = 1e-3
+
+
+def _cfg(kind="global", acc=1, warmup=0, low=False) -> ExperimentConfig:
+    mc = tiny_model_config(use_word_alignment=False)
+    mc = dataclasses.replace(
+        mc, heads=dataclasses.replace(mc.heads, use_cross_modal=False),
+        audio=dataclasses.replace(mc.audio, use_flash_attention=True))
+    return ExperimentConfig(
+        model=mc,
+        freeze=FreezeConfig(mode="partial", text_layers_to_unfreeze=1,
+                            audio_layers_to_unfreeze=1,
+                            frozen_dtype="bfloat16" if low else None),
+        loss=LossConfig(kind=kind),
+        optimizer=OptimizerConfig(learning_rate=LR, warmup_steps=warmup,
+                                  mu_dtype="bfloat16" if low else None),
+        data=DataConfig(dataset="synthetic", batch_size=4, max_text_length=12,
+                        audio_buckets=(16000,), max_audio_samples=16000,
+                        num_synthetic_samples=16),
+        train=TrainConfig(num_epochs=1, accumulation_steps=acc, seed=0))
+
+
+def _host_batches(cfg, n):
+    src = SyntheticSource(cfg.data, seed=3)
+    pipe = DataPipeline(cfg.data, SimpleWordTokenizer(vocab_size=128),
+                        seed=cfg.train.seed)
+    out, epoch = [], 0
+    while len(out) < n:
+        out.extend(pipe.epoch_batches(src, "train", epoch=epoch))
+        epoch += 1
+    return out[:n]
+
+
+@pytest.fixture(scope="module")
+def params():
+    model = JaxModel(_cfg().model)
+    return jax.tree.map(np.asarray, init_params(model, jax.random.PRNGKey(0)))
+
+
+def _port_state(cfg, params, total_steps):
+    model = DualEncoderModel(cfg.model, param_dtype=torch.float32)
+    bridge.load_flax_params(model, params)
+    return tts.create_train_state(model, cfg, total_steps)
+
+
+# every feature of the step once, in two JAX compiles (each takes ≈14 s):
+# both loss kinds (corrupt_gamma 0.35 in both), accumulation 1 and 2, warmup
+# 0 and 1, fp32 and bf16 storage of the frozen split and of Adam's mu
+CASES = {
+    "pairwise_acc1_warm0": dict(kind="pairwise", acc=1, warmup=0),
+    "global_acc2_warm1_bf16_frozen_mu": dict(kind="global", acc=2, warmup=1,
+                                             low=True),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_train_step_matches_jax(params, case):
+    cfg = _cfg(**CASES[case])
+    acc = cfg.train.accumulation_steps
+    batches = _host_batches(cfg, 2 * acc)              # two updates
+    total_steps = 4
+    labels = jopt.param_labels(params, cfg.freeze, cfg.model)
+    tx = jopt.make_optimizer(cfg.optimizer, cfg.freeze,
+                             jopt.split_params(labels, labels)[0],
+                             total_steps, accumulation_steps=acc)
+    jstate = jts.create_train_state(jax.tree.map(jnp.asarray, params),
+                                    labels, tx,
+                                    jts.resolve_frozen_dtype(cfg))
+    jstep = jts.make_train_step(cfg, JaxModel(cfg.model),
+                                LogMelFrontend(cfg.model.frontend), tx)
+    state = _port_state(cfg, params, total_steps)
+    frontend = make_frontend(cfg.model.frontend)
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    gen = torch.Generator().manual_seed(0)
+    for i, batch in enumerate(batches):
+        jstate, jm = jstep(jstate, batch, jax.random.PRNGKey(1))
+        m = tts.train_step(cfg, state, frontend, batch, gen)
+        for k in ("loss", "grad_norm", "clean_hr", "corrupt_hr"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4,
+                                       err_msg=f"micro-step {i}: {k}")
+    assert state.optimizer.count == 2 and int(jstate.step) == len(batches)
+
+    want = bridge.flax_to_state_dict(jax.tree.map(np.asarray, jopt.merge_params(
+        dict(jstate.trainable), dict(jstate.frozen))))
+    moved = 0
+    for name, p in state.trainable.items():
+        assert p.dtype == torch.float32
+        diff = np.abs(p.detach().numpy() - want[name].numpy())
+        if name.endswith(ZERO_GRAD_LEAVES):
+            assert diff.max() <= 2.5 * LR, name
+        else:
+            assert diff.max() <= 0.25 * LR and np.mean(diff > 1e-5) <= 1e-3, (
+                name, diff.max(), np.mean(diff > 1e-5))
+        moved += not torch.equal(p.detach(),
+                                 torch.from_numpy(np.asarray(
+                                     bridge.flax_to_state_dict(params)[name])))
+    assert moved > 0.9 * len(state.trainable)
+    low = jts.resolve_frozen_dtype(cfg) == "bfloat16"
+    for name, p in state.frozen.items():
+        assert p.dtype == (torch.bfloat16 if low else torch.float32)
+        assert torch.equal(p, frozen0[name]), name
+        np.testing.assert_array_equal(p.float().numpy(), want[name].numpy())
+    if low:
+        assert all(m.dtype == torch.bfloat16
+                   for m in state.optimizer.mu.values())
+
+
+def test_lr_is_zero_at_the_first_update_with_warmup(params):
+    cfg = _cfg(kind="pairwise", acc=1, warmup=1)
+    state = _port_state(cfg, params, total_steps=4)
+    before = {k: p.detach().clone() for k, p in state.trainable.items()}
+    tts.train_step(cfg, state, make_frontend(cfg.model.frontend),
+                   _host_batches(cfg, 1)[0], torch.Generator().manual_seed(0))
+    assert state.optimizer.count == 1
+    assert all(torch.equal(p, before[k]) for k, p in state.trainable.items())
+
+
+def test_eval_step_matches_jax_with_masked_tail(params):
+    """kind='global': its loss_sum is the masked in-batch objective, and
+    pairwise_loss_sum the pairwise CE that kind='pairwise' reports."""
+    cfg = _cfg(kind="global")
+    batch = dict(_host_batches(cfg, 1)[0])
+    batch["example_mask"] = np.array([1, 1, 1, 0], np.float32)
+    labels = jopt.param_labels(params, cfg.freeze, cfg.model)
+    tx = jopt.make_optimizer(cfg.optimizer, cfg.freeze,
+                             jopt.split_params(labels, labels)[0], 4)
+    jstate = jts.create_train_state(jax.tree.map(jnp.asarray, params),
+                                    labels, tx)
+    ref = jts.make_eval_step(cfg, JaxModel(cfg.model),
+                             LogMelFrontend(cfg.model.frontend))(
+        jstate.trainable, jstate.frozen, batch)
+    state = _port_state(cfg, params, 4)
+    got = tts.eval_step(cfg, state.model, make_frontend(cfg.model.frontend),
+                        batch)
+    for k in ("loss_sum", "pairwise_loss_sum", "count", "s_pos", "s_neg",
+              "example_mask"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
