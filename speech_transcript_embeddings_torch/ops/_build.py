@@ -35,6 +35,8 @@ _SIGNATURES = {
     "ste_flash_rel_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _I, _I, _P],
     "ste_flash_rel_bwd": [_P] * 13 + [_I] * 7 + [_F, _F, _I, _I, _P],
+    "ste_flash_rel_fwd_mma": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "ste_flash_rel_bwd_mma": [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P],
 }
 
 
@@ -55,7 +57,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):         # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libste_kernels_{h.hexdigest()[:16]}.so"

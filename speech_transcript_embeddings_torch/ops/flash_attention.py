@@ -13,9 +13,16 @@ for the backward. Same signature and layout as the JAX function: q, k, v
 ``[B·num_heads, T, hd]``, E ``[num_pos, hd]``, ``kv_mask [B, T]`` a
 contiguous-prefix mask reduced to one valid length per batch row.
 
-``flash_attention`` is differentiable: its backward is the K4 kernel
-(``csrc/flash_rel_bwd.cu``) for CUDA tensors and ``rel_attention_bwd_
-reference`` (the same math in plain PyTorch) for CPU tensors. Its
+Each direction has two CUDA kernels (``csrc/flash_rel_fwd.cu``, the
+backward pair in ``csrc/flash_rel_bwd.cu``): a tensor-core one for bf16
+with a head dim that is a multiple of 16 (the conformer's case) and a
+CUDA-core one for fp32 and other head dims; ``flash_kernel`` is the rule
+that picks one, and ``LAUNCHES`` counts each kernel's launches. CPU tensors
+take the plain twins.
+
+``flash_attention`` is differentiable: its backward is the K4 kernel pair
+for CUDA tensors and ``rel_attention_bwd_reference`` (the same math in
+plain PyTorch) for CPU tensors. Its
 ``residuals`` list keeps the forward's (out, lse) across a remat replay, so
 the replay does not launch the forward kernel again (the JAX
 ``save_residuals`` variant).
@@ -23,6 +30,7 @@ the replay does not launch the forward kernel again (the JAX
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Tuple
 
@@ -35,6 +43,8 @@ NEG = -1e30
 MAX_NUM_POS = 128
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launches of each CUDA kernel (pair), counted where it is launched
+LAUNCHES = collections.Counter()
 
 
 def _t_pad(t: int) -> int:
@@ -171,49 +181,86 @@ def rel_attention_bwd_reference(q, k, v, dist_embedding, kv_mask, out, lse,
             de.to(dist_embedding.dtype))
 
 
+def flash_kernel(dtype: torch.dtype, head_dim: int) -> str:
+    """The dispatch rule for CUDA tensors: ``"mma"`` (the tensor-core
+    kernels, bf16 operands with fp32 accumulate, as the TPU's MXU computes)
+    for bf16 with a head dim that is a multiple of 16 up to 128; ``"simt"``
+    (the CUDA-core kernels, fp32 throughout) for everything else — fp32
+    inputs, whose 1e-4 tolerance tensor cores cannot meet, and odd head
+    dims."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and \
+            head_dim <= MAX_HEAD_DIM:
+        return "mma"
+    return "simt"
+
+
+def _np_pad(num_pos: int) -> int:
+    """E's rows padded to the mma k-step (16) in the tensor-core kernels."""
+    return -(-num_pos // 16) * 16
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous with a 16-byte aligned start (the kernels read 16
+    bytes at a time)."""
+    x = x.detach().contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _fwd_launch(kernel, q, k, v, dist_embedding, kv_mask, num_heads,
+                left_max):
+    """Launch forward kernel ``kernel`` ("mma" or "simt") → (out, lse)."""
+    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
+    _require_cuda("flash_attention", q, k, v, dist_embedding, kv_mask)
+    bh, t, hd = q.shape
+    q, k, v = (_aligned(x) for x in (q, k, v))
+    e = _aligned(dist_embedding.to(q.dtype))
+    lengths = _lengths(kv_mask).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
+    device, stream = _build.launch_args(q)
+    lib = _build.library()
+    if kernel == "mma":
+        if flash_kernel(q.dtype, hd) != "mma":
+            raise ValueError(f"flash_rel_fwd_mma takes bf16 with hd a "
+                             f"multiple of 16 ≤ {MAX_HEAD_DIM}: {q.dtype}, "
+                             f"hd {hd}")
+        code = lib.ste_flash_rel_fwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t,
+            _t_pad(t), hd, e.shape[0], left_max, num_heads,
+            float(_scale(q)), device, stream)
+        _build.check(code, "ste_flash_rel_fwd_mma")
+        LAUNCHES["flash_rel_fwd_mma"] += 1
+    else:
+        code = lib.ste_flash_rel_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t,
+            _t_pad(t), hd, e.shape[0], left_max, num_heads,
+            float(_scale(q)), _DTYPES[q.dtype], device, stream)
+        _build.check(code, "ste_flash_rel_fwd")
+        LAUNCHES["flash_rel_fwd"] += 1
+    return out, lse
+
+
 def flash_attention_fwd(q, k, v, dist_embedding, kv_mask, *,
                         num_heads: int, left_max: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) through the forward kernel for CUDA tensors, through the
-    twin for CPU tensors; no gradient (``flash_attention`` differentiates)."""
+    """(out, lse) through the forward kernel that ``flash_kernel`` picks for
+    CUDA tensors, through the twin for CPU tensors; no gradient
+    (``flash_attention`` differentiates)."""
     if q.device.type == "cpu":
         with torch.no_grad():
             return rel_attention_reference(
                 q, k, v, dist_embedding, kv_mask, num_heads=num_heads,
                 left_max=left_max)
-    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
-    _require_cuda("flash_attention", q, k, v, dist_embedding, kv_mask)
-    bh, t, hd = q.shape
-    q, k, v = q.detach().contiguous(), k.detach().contiguous(), \
-        v.detach().contiguous()
-    e = dist_embedding.detach().to(q.dtype).contiguous()
-    lengths = _lengths(kv_mask).contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
-    device, stream = _build.launch_args(q)
-    code = _build.library().ste_flash_rel_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t, _t_pad(t),
-        hd, e.shape[0], left_max, num_heads, float(_scale(q)),
-        _DTYPES[q.dtype], device, stream)
-    _build.check(code, "ste_flash_rel_fwd")
-    flash_attention_fwd.launches += 1
-    return out, lse
+    return _fwd_launch(flash_kernel(q.dtype, q.shape[-1]), q, k, v,
+                       dist_embedding, kv_mask, num_heads, left_max)
 
 
-flash_attention_fwd.launches = 0
-
-
-def flash_attention_bwd(q, k, v, dist_embedding, kv_mask, out, lse, dout, *,
-                        num_heads: int, left_max: int
-                        ) -> Tuple[torch.Tensor, ...]:
-    """(dq, dk, dv, dE) through the backward kernel for CUDA tensors,
-    through ``rel_attention_bwd_reference`` for CPU tensors. ``dist_
-    embedding`` is E in the dtype the forward used; dE comes back in it."""
-    if q.device.type == "cpu":
-        return rel_attention_bwd_reference(
-            q, k, v, dist_embedding, kv_mask, out, lse, dout,
-            num_heads=num_heads, left_max=left_max)
+def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
+                num_heads, left_max):
+    """Launch backward kernel pair ``kernel`` ("mma" or "simt") → (dq, dk,
+    dv, dE)."""
     _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
     _require_cuda("flash_attention_bwd", q, k, v, dist_embedding, kv_mask,
                   out, lse, dout)
@@ -222,32 +269,67 @@ def flash_attention_bwd(q, k, v, dist_embedding, kv_mask, out, lse, dout, *,
                          f"{q.dtype}: cast E before the op")
     bh, t, hd = q.shape
     num_pos = dist_embedding.shape[0]
-    q, k, v, e = (x.detach().contiguous() for x in (q, k, v, dist_embedding))
-    do = dout.detach().to(q.dtype).contiguous()
+    q, k, v, e = (_aligned(x) for x in (q, k, v, dist_embedding))
+    do = _aligned(dout.to(q.dtype))
     lse = lse.detach().float().contiguous()
-    # dd = rowsum(dO∘O) in fp32 (outside the kernel, as in the JAX wrapper)
-    dd = torch.sum(do.float() * out.detach().float(), dim=-1).contiguous()
+    # dd = rowsum(dO∘O) in fp32 (outside the kernel, as in the JAX wrapper);
+    # bf16·bf16 is exact in fp32, and the mixed-dtype product casts O on the
+    # fly instead of materialising an fp32 copy of it
+    dd = torch.sum(do.float() * out.detach(), dim=-1).contiguous()
     lengths = _lengths(kv_mask).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    q_tiles = -(-t // 64)                   # the kernel's query tile (kBM)
+    q_tiles = -(-t // 64)                   # the kernels' query tile
     de_part = torch.empty((bh * q_tiles, num_pos, hd), dtype=torch.float32,
                           device=q.device)
-    qe = torch.empty((bh, t, num_pos), dtype=torch.float32, device=q.device)
     device, stream = _build.launch_args(q)
-    code = _build.library().ste_flash_rel_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
-        lengths.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qe.data_ptr(),
-        de_part.data_ptr(), bh,
-        t, _t_pad(t), hd, num_pos, left_max, num_heads, float(_scale(q)),
-        1.0 / math.sqrt(hd), _DTYPES[q.dtype], device, stream)
-    _build.check(code, "ste_flash_rel_bwd")
-    flash_attention_bwd.launches += 1
+    lib = _build.library()
+    if kernel == "mma":
+        if flash_kernel(q.dtype, hd) != "mma":
+            raise ValueError(f"flash_rel_bwd_mma takes bf16 with hd a "
+                             f"multiple of 16 ≤ {MAX_HEAD_DIM}: {q.dtype}, "
+                             f"hd {hd}")
+        q_s = torch.empty_like(q)
+        qe = torch.empty((bh, t, _np_pad(num_pos)), dtype=torch.float32,
+                         device=q.device)
+        code = lib.ste_flash_rel_bwd_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            lengths.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_s.data_ptr(),
+            qe.data_ptr(), de_part.data_ptr(), bh, t, _t_pad(t), hd, num_pos,
+            left_max, num_heads, float(_scale(q)), 1.0 / math.sqrt(hd),
+            device, stream)
+        _build.check(code, "ste_flash_rel_bwd_mma")
+        LAUNCHES["flash_rel_bwd_mma"] += 1
+    else:
+        qe = torch.empty((bh, t, num_pos), dtype=torch.float32,
+                         device=q.device)
+        code = lib.ste_flash_rel_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            lengths.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qe.data_ptr(),
+            de_part.data_ptr(), bh, t, _t_pad(t), hd, num_pos, left_max,
+            num_heads, float(_scale(q)), 1.0 / math.sqrt(hd),
+            _DTYPES[q.dtype], device, stream)
+        _build.check(code, "ste_flash_rel_bwd")
+        LAUNCHES["flash_rel_bwd"] += 1
     de = torch.sum(de_part, dim=0).to(e.dtype)
     return dq, dk, dv, de
 
 
-flash_attention_bwd.launches = 0
+def flash_attention_bwd(q, k, v, dist_embedding, kv_mask, out, lse, dout, *,
+                        num_heads: int, left_max: int
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv, dE) through the backward kernel pair that
+    ``flash_kernel`` picks for CUDA tensors, through
+    ``rel_attention_bwd_reference`` for CPU tensors. ``dist_embedding`` is
+    E in the dtype the forward used; dE comes back in it."""
+    if q.device.type == "cpu":
+        return rel_attention_bwd_reference(
+            q, k, v, dist_embedding, kv_mask, out, lse, dout,
+            num_heads=num_heads, left_max=left_max)
+    return _bwd_launch(flash_kernel(q.dtype, q.shape[-1]), q, k, v,
+                       dist_embedding, kv_mask, out, lse, dout, num_heads,
+                       left_max)
 
 
 class _FlashApply(torch.autograd.Function):

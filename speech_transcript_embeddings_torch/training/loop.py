@@ -4,9 +4,9 @@ Port of the main line of ``speech_transcript_embeddings_tpu/training/
 loop.py``: set-up and logging, the exact LR-schedule accounting, the epoch
 loop over ``DataPipeline.epoch_batches`` with host prefetch, validation
 each epoch, and the ``final_model`` checkpoint, which the port's serving
-path loads. It reuses the JAX package's framework-free data pipeline,
-synthetic/Common Voice sources, tokenizers and artifact helpers
-(``speech_transcript_embeddings_torch.data``). Each micro-step's loss stays
+path loads. The data pipeline, the synthetic/Common Voice sources, the
+tokenizers and the artifact helpers are the port's copies of the JAX
+package's (``speech_transcript_embeddings_torch.data``). Each micro-step's loss stays
 on the device with a CUDA event after it; both are read once the epoch
 has synced, so the step log adds no host sync to the batch loop.
 

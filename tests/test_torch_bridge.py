@@ -19,6 +19,7 @@ from speech_transcript_embeddings_torch import bridge
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
+from torch_port_cfg import port_cfg
 
 
 def tiny_retrieval(**audio):
@@ -49,8 +50,8 @@ def test_exact_round_trip_tiny(scan_bottom, tiny_params):
     mc = _scanned(tiny_retrieval(), scan_bottom)
     params = (_np_tree(init_params(JaxModel(mc), jax.random.PRNGKey(0)))
               if scan_bottom else tiny_params)
-    model = bridge.load_flax_params(DualEncoderModel(mc), params)
-    back = bridge.state_dict_to_flax(model, mc)
+    model = bridge.load_flax_params(DualEncoderModel(port_cfg(mc)), params)
+    back = bridge.state_dict_to_flax(model, port_cfg(mc))
     flat_a = dict(bridge._flatten(params))
     flat_b = dict(bridge._flatten(back))
     assert set(flat_a) == set(flat_b)
@@ -82,11 +83,11 @@ def test_unused_or_missing_leaves_raise(tiny_params):
     mc, params = tiny_retrieval(), tiny_params
     extra = dict(params, stray={"kernel": np.zeros((2, 2), np.float32)})
     with pytest.raises(ValueError, match="unused leaves .*stray"):
-        bridge.load_flax_params(DualEncoderModel(mc), extra)
+        bridge.load_flax_params(DualEncoderModel(port_cfg(mc)), extra)
     missing = dict(params)
     missing.pop("audio_pooling")
     with pytest.raises(ValueError, match="unset parameters .*audio_pooling"):
-        bridge.load_flax_params(DualEncoderModel(mc), missing)
+        bridge.load_flax_params(DualEncoderModel(port_cfg(mc)), missing)
 
 
 def test_flagship_abstract_tree_covers_meta_model():
@@ -97,7 +98,7 @@ def test_flagship_abstract_tree_covers_meta_model():
     mc = retrieval_model_config()
     shapes = bridge.flax_shapes(abstract_params(JaxModel(mc)))
     with torch.device("meta"):
-        model = DualEncoderModel(mc)
+        model = DualEncoderModel(port_cfg(mc))
     bridge.check_covers(model, shapes)
     n = sum(int(np.prod(s)) for s in shapes.values())
     assert n == sum(p.numel() for p in model.parameters())

@@ -26,6 +26,7 @@ from speech_transcript_embeddings_torch.inference import embed as tembed
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
+from torch_port_cfg import port_cfg
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TEXTS = ["casa tempo dia", "mar sol", "uma palavra longa de teste aqui"]
@@ -53,9 +54,9 @@ def pair():
     cfg = _cfg()
     params = init_params(JaxModel(cfg.model), jax.random.PRNGKey(0))
     ref = jembed.Embedder(cfg, params)
-    model = bridge.load_flax_params(DualEncoderModel(cfg.model),
+    model = bridge.load_flax_params(DualEncoderModel(port_cfg(cfg.model)),
                                     jax.tree.map(np.asarray, params))
-    return ref, tembed.Embedder(cfg, model)
+    return ref, tembed.Embedder(port_cfg(cfg), model)
 
 
 def test_embed_texts_matches_jax(pair):
@@ -120,15 +121,22 @@ def test_retrieval_metrics_match_jax(seed):
 
 
 def test_port_imports_without_jax():
-    """The card's machine has no jax: the package, its Embedder and its
-    server import with jax, flax, optax and orbax blocked."""
+    """The card's machine has no jax, and the port imports nothing of the
+    JAX package: every entry point and both kernel modules import with jax,
+    flax, optax, orbax and speech_transcript_embeddings_tpu blocked."""
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'optax', 'orbax'): sys.modules[m] = None\n"
+            "for m in ('jax', 'flax', 'optax', 'orbax', "
+            "'speech_transcript_embeddings_tpu'): sys.modules[m] = None\n"
             "import speech_transcript_embeddings_torch.serve\n"
+            "import speech_transcript_embeddings_torch.train\n"
+            "import speech_transcript_embeddings_torch.training.loop\n"
             "from speech_transcript_embeddings_torch.inference.embed import Embedder\n"
             "import speech_transcript_embeddings_torch.bridge\n"
             "import speech_transcript_embeddings_torch.ops.frontend_kernels\n"
-            "assert not any(k.split('.')[0] in ('jax', 'flax') "
+            "import speech_transcript_embeddings_torch.ops.flash_attention\n"
+            "import speech_transcript_embeddings_torch.data.native_audio\n"
+            "assert not any(k.split('.')[0] in ('jax', 'flax', "
+            "'speech_transcript_embeddings_tpu') "
             "for k, v in sys.modules.items() if v is not None)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

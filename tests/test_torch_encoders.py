@@ -22,6 +22,7 @@ from speech_transcript_embeddings_torch.models import text_encoder as tte
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel, init_model,
 )
+from torch_port_cfg import port_cfg
 
 MC = tiny_model_config(use_word_alignment=False)
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -49,7 +50,7 @@ def test_audio_encoder_matches_jax(flash):
         jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(mask))["params"]
     ref = np.asarray(enc.apply({"params": params}, jnp.asarray(feats),
                                jnp.asarray(mask)))
-    port = _port(tae.AudioEncoder(cfg, torch.float32), params)
+    port = _port(tae.AudioEncoder(port_cfg(cfg), torch.float32), params)
     got = port(torch.from_numpy(feats), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, ref, **TOL)
 
@@ -66,7 +67,7 @@ def test_text_encoder_matches_jax():
                       jnp.asarray(mask))["params"]
     ref = np.asarray(enc.apply({"params": params}, jnp.asarray(ids),
                                jnp.asarray(mask)))
-    port = _port(tte.TextEncoder(cfg, torch.float32), params)
+    port = _port(tte.TextEncoder(port_cfg(cfg), torch.float32), params)
     got = port(torch.from_numpy(ids), torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, ref, **TOL)
     np.testing.assert_array_equal(
@@ -98,13 +99,14 @@ def test_heads_match_jax():
 
 def test_fusion_heads_are_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DualEncoderModel(tiny_model_config())
+        DualEncoderModel(port_cfg(tiny_model_config()))
 
 
 def test_seeded_init_is_deterministic_and_finite():
     mc = dataclasses.replace(
         MC, heads=dataclasses.replace(MC.heads, use_cross_modal=False),
         audio=dataclasses.replace(MC.audio, use_flash_attention=True))
+    mc = port_cfg(mc)
     a = init_model(mc, torch.Generator().manual_seed(7))
     b = init_model(mc, torch.Generator().manual_seed(7))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),

@@ -103,7 +103,7 @@ def test_wrapper_raises_without_backward():
         assert x.grad is not None and x.grad.shape == x.shape
         assert x.grad.dtype == x.dtype and torch.isfinite(x.grad).all()
         assert x.grad.abs().max() > 0
-    assert fa.flash_attention_bwd.launches == 0
+    assert sum(fa.LAUNCHES.values()) == 0
     with torch.no_grad():
         assert not fa.flash_attention(*args, torch.from_numpy(mask),
                                       num_heads=NH, left_max=L).requires_grad
@@ -122,7 +122,7 @@ def test_wrapper_rejects_bad_inputs_and_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(*meta, torch.from_numpy(mask).to("meta"),
                            num_heads=NH, left_max=L)
-    assert fa.flash_attention_fwd.launches == 0
+    assert sum(fa.LAUNCHES.values()) == 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -263,7 +263,7 @@ def test_module_flash_matches_plain_path():
     tests/test_flash_attention.py's module test)."""
     import dataclasses
 
-    from speech_transcript_embeddings_tpu.config import AudioEncoderConfig
+    from speech_transcript_embeddings_torch.config import AudioEncoderConfig
     from speech_transcript_embeddings_torch.models.audio_encoder import (
         RelPositionAttention,
     )
@@ -290,3 +290,190 @@ def test_module_flash_matches_plain_path():
     for name, gx in grads[0].items():
         torch.testing.assert_close(grads[1][name], gx, rtol=2e-3, atol=1e-4,
                                    msg=name)
+
+
+# ---- the tensor-core kernels' tile schedule, rehearsed on the CPU ----------
+#
+# A test-only emulation of csrc/flash_rel_fwd.cu and csrc/flash_rel_bwd.cu's
+# bf16 kernels: the same tiles (a warp's 16 query or key rows against 64
+# columns), the same band classification (a tile whose every j − i ≤ −L
+# or ≥ R takes a row-constant bias, whose gradient is the row sum of ds),
+# the same skip of the keys past a clip's length, the same online softmax
+# per key tile and the same bf16 rounding points, in fp32 torch ops.
+
+EL, ER = 64, 8                     # the conformer's band
+TILE, WARP_ROWS, COLS = 64, 16, 64     # COLS: a warp's step at hd ≤ 64
+NEG = -1e30
+
+
+def _bf(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_fwd(q, k, v, e, lengths, nh):
+    """(out, lse) of one call of the forward kernel, q/k/v ``[B·h, t, hd]``
+    bf16 (as fp32 values), e ``[P, hd]``, ``lengths`` per clip."""
+    bh, t, hd = q.shape
+    t_pad, lr = fa._t_pad(t), EL + ER
+    qs = _bf(q * _bf(torch.tensor(1.0 / np.sqrt(hd))))
+    qe = _bf(qs @ e.T)                                       # [bh, t, P]
+    out = torch.zeros_like(q)
+    lse = torch.zeros(bh, t, 1)
+    for row in range(bh):
+        limit = lengths[row // nh]
+        n_keys = limit if limit > 0 else t
+        for i0 in range(0, t, WARP_ROWS):
+            rows = torch.arange(i0, min(i0 + WARP_ROWS, t))
+            m = torch.full((len(rows), 1), -np.inf)
+            l = torch.zeros(len(rows), 1)
+            o = torch.zeros(len(rows), hd)
+            for j0 in range(0, n_keys, TILE):
+                cols = torch.arange(j0, min(j0 + TILE, t))
+                s = qs[row, rows] @ k[row, cols].T
+                all_lo = j0 + TILE - 1 - i0 <= -EL
+                all_hi = j0 - (i0 + WARP_ROWS - 1) >= ER
+                if j0 + TILE <= limit and (all_lo or all_hi):
+                    s = s + qe[row, rows][:, [0 if all_lo else lr]]
+                else:
+                    c = torch.clamp(cols[None] - rows[:, None], -EL, ER) + EL
+                    s = s + torch.gather(qe[row, rows], 1, c)
+                    s = torch.where(cols[None] >= limit, NEG, s)
+                m_new = torch.maximum(m, s.amax(1, keepdim=True))
+                corr = torch.exp(m - m_new)
+                p = torch.exp(s - m_new)
+                l = l * corr + p.sum(1, keepdim=True)
+                o = o * corr + _bf(p) @ v[row, cols]
+                m = m_new
+            l = l + (t_pad - t) * torch.exp(NEG - m)
+            out[row, rows] = _bf(o / l)
+            lse[row, rows] = m + torch.log(l)
+    return out, lse
+
+
+def _emulate_bwd(q, k, v, e, lengths, nh, out, lse, dout):
+    """(dq, dk, dv, dE) of one call of the backward kernel pair: kernel A
+    per (row, 16 queries) over 64-key steps, kernel B per (row, 16 keys)
+    over 64-query steps."""
+    bh, t, hd = q.shape
+    t_pad, lr, num_pos = fa._t_pad(t), EL + ER, e.shape[0]
+    qs = _bf(q * _bf(torch.tensor(1.0 / np.sqrt(hd))))
+    qe = _bf(qs @ e.T)
+    dd = (dout * out).sum(-1)                                # [bh, t]
+    lse = lse[..., 0]
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    de = torch.zeros(num_pos, hd)
+    for row in range(bh):
+        limit = lengths[row // nh]
+        n_keys = limit if limit > 0 else t
+        dqe = torch.zeros(t, num_pos)
+        for i0 in range(0, t, WARP_ROWS):                    # kernel A
+            rows = torch.arange(i0, min(i0 + WARP_ROWS, t))
+            acc = torch.zeros(len(rows), hd)
+            lo = torch.zeros(len(rows))
+            hi = torch.zeros(len(rows))
+            for j0 in range(0, n_keys, COLS):
+                cols = torch.arange(j0, min(j0 + COLS, t))
+                s = qs[row, rows] @ k[row, cols].T
+                dp = dout[row, rows] @ v[row, cols].T
+                all_lo = j0 + COLS - 1 - i0 <= -EL
+                all_hi = j0 - (i0 + WARP_ROWS - 1) >= ER
+                if j0 + COLS <= limit and (all_lo or all_hi):
+                    b = qe[row, rows][:, [0 if all_lo else lr]]
+                    ds = torch.exp(s + b - lse[row, rows, None]) * (
+                        dp - dd[row, rows, None])
+                    if all_lo:
+                        lo += ds.sum(1)
+                    else:
+                        hi += ds.sum(1)
+                else:
+                    c = torch.clamp(cols[None] - rows[:, None], -EL, ER) + EL
+                    s = torch.where(cols[None] >= limit, NEG,
+                                    s + torch.gather(qe[row, rows], 1, c))
+                    ds = torch.exp(s - lse[row, rows, None]) * (
+                        dp - dd[row, rows, None])
+                    lo += torch.where(c == 0, ds, 0.0).sum(1)
+                    hi += torch.where(c == lr, ds, 0.0).sum(1)
+                    inner = (c > 0) & (c < lr)
+                    dqe[rows] += torch.zeros(len(rows), num_pos).scatter_add_(
+                        1, c, torch.where(inner, ds, 0.0))
+                acc += _bf(ds) @ k[row, cols]
+            dqe[rows, 0] += lo
+            dqe[rows, lr] += hi
+            p_pad = torch.exp(NEG - lse[row, rows])
+            for j in range(t, t_pad):                        # padded keys
+                c = torch.clamp(j - rows, -EL, ER) + EL
+                dqe[rows, c] += -p_pad * dd[row, rows]
+            acc += _bf(dqe[rows]) @ e
+            dq[row, rows] = _bf(_bf(acc) * (1.0 / np.sqrt(hd)))
+        de += dqe.T @ qs[row]
+        for j0 in range(0, t, WARP_ROWS):                    # kernel B
+            keys = torch.arange(j0, min(j0 + WARP_ROWS, t))
+            if limit > 0 and j0 >= limit:
+                continue                                     # dk = dv = 0
+            ak, av = torch.zeros(len(keys), hd), torch.zeros(len(keys), hd)
+            for i0 in range(0, t, COLS):
+                qr = torch.arange(i0, min(i0 + COLS, t))
+                s = k[row, keys] @ qs[row, qr].T             # [keys, queries]
+                dp = v[row, keys] @ dout[row, qr].T
+                all_lo = j0 + WARP_ROWS - 1 - i0 <= -EL
+                all_hi = j0 - (i0 + COLS - 1) >= ER
+                if j0 + WARP_ROWS <= limit and (all_lo or all_hi):
+                    s = s + qe[row, qr][:, 0 if all_lo else lr][None]
+                else:
+                    c = torch.clamp(keys[:, None] - qr[None], -EL, ER) + EL
+                    s = torch.where(keys[:, None] >= limit, NEG, s + torch.gather(
+                        qe[row, qr].T, 0, c))
+                p = torch.exp(s - lse[row, qr][None])
+                ds = p * (dp - dd[row, qr][None])
+                av += _bf(p) @ dout[row, qr]
+                ak += _bf(ds) @ qs[row, qr]
+            dk[row, keys], dv[row, keys] = _bf(ak), _bf(av)
+    return dq, dk, dv, de
+
+
+def _bf_inputs(lengths, t, seed, hd=16):
+    rng = np.random.default_rng(seed)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=(
+        len(lengths) * NH, t, hd)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(4))
+    e = torch.from_numpy((rng.normal(size=(EL + ER + 1, hd)) * 0.3).astype(
+        np.float32)).to(torch.bfloat16)
+    mask = torch.from_numpy((np.arange(t)[None, :] < np.asarray(
+        lengths)[:, None]).astype(np.float32))
+    return q, k, v, e, mask, dout
+
+
+@pytest.mark.parametrize("t,lengths", [(150, (150, 97)), (300, (300, 0)),
+                                       (300, (211, 300))],
+                         ids=["t150_ragged", "t300_zero_length_clip",
+                              "t300_ragged"])
+def test_mma_tile_schedule_matches_twins(t, lengths):
+    """The emulated schedule against ``rel_attention_reference`` (out within
+    2e-2, lse within 1e-3: phase 3's tolerances) and ``rel_attention_bwd_
+    reference`` (each gradient within 2e-2 of its largest element: phase
+    6's), in bf16 at L = 64, R = 8."""
+    q, k, v, e, mask, dout = _bf_inputs(lengths, t, seed=t + lengths[1])
+    kw = dict(num_heads=NH, left_max=EL)
+    ref, ref_lse = fa.rel_attention_reference(q, k, v, e, mask, **kw)
+    out, lse = _emulate_fwd(*(x.float() for x in (q, k, v, e)), lengths, NH)
+    torch.testing.assert_close(out, ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-3)
+    grads = fa.rel_attention_bwd_reference(q, k, v, e, mask, ref, ref_lse,
+                                           dout, **kw)
+    got = _emulate_bwd(*(x.float() for x in (q, k, v, e)), lengths, NH,
+                       ref.float(), ref_lse, dout.float())
+    for name, a, r in zip(("dq", "dk", "dv", "dE"), got, grads):
+        r = r.float()
+        err = ((a - r).abs().max() / r.abs().max()).item()
+        assert err <= 2e-2, (name, err)
+
+
+@pytest.mark.parametrize("dtype,hd,kernel", [
+    (torch.bfloat16, 64, "mma"), (torch.bfloat16, 128, "mma"),
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 72, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 12, "simt")])
+def test_flash_dispatch_rule(dtype, hd, kernel):
+    """bf16 with hd a multiple of 16 up to 128 goes to the tensor-core
+    kernels, everything else (fp32, odd head dims) to the CUDA-core ones."""
+    assert fa.flash_kernel(dtype, hd) == kernel

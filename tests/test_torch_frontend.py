@@ -3,17 +3,21 @@ frontend's CPU path against the JAX ``LogMelFrontend`` and the Pallas
 frontend (fused and tiled, interpret mode), at the shapes of
 tests/test_frontend_pallas.py."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
 from speech_transcript_embeddings_tpu.config import FrontendConfig
+from speech_transcript_embeddings_torch import config as tconfig
 from speech_transcript_embeddings_tpu.ops import frontend as jfe
 from speech_transcript_embeddings_tpu.ops import frontend_pallas as jfp
 from speech_transcript_embeddings_torch.ops import frontend as fe
 from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
 from speech_transcript_embeddings_torch.ops import make_frontend
+from torch_port_cfg import port_cfg
 
 CFGS = {"w2v_bert": FrontendConfig(), "tiny_8_bins": FrontendConfig(num_mel_bins=8)}
 LENGTHS = [21000, 48000, 7000]
@@ -31,9 +35,9 @@ def _batch(lengths=LENGTHS, bucket=BUCKET, seed=0):
 @pytest.mark.parametrize("name", list(CFGS))
 def test_numpy_builders_equal_jax_module(name):
     cfg = CFGS[name]
-    np.testing.assert_array_equal(fe.make_frame_transform(cfg),
+    np.testing.assert_array_equal(fe.make_frame_transform(port_cfg(cfg)),
                                   jfe.make_frame_transform(cfg))
-    np.testing.assert_array_equal(fe.make_mel_filters(cfg),
+    np.testing.assert_array_equal(fe.make_mel_filters(port_cfg(cfg)),
                                   jfe.make_mel_filters(cfg))
 
 
@@ -50,7 +54,7 @@ def test_features_match_jax(jax_front):
                                                           fused=False),
     }[jax_front]()
     ref_feats, ref_mask = ref_front(jnp.asarray(wav), jnp.asarray(lens))
-    feats, mask = fe.LogMelFrontend(cfg)(torch.from_numpy(wav),
+    feats, mask = fe.LogMelFrontend(port_cfg(cfg))(torch.from_numpy(wav),
                                          torch.from_numpy(lens))
     assert feats.dtype == torch.float32 and mask.dtype == torch.int32
     np.testing.assert_array_equal(mask.numpy(), np.asarray(ref_mask))
@@ -65,9 +69,9 @@ def test_raw_log_mel_matches_jax(name):
     the Pallas kernel does)."""
     cfg = CFGS[name]
     wav, _ = _batch([16000], 16000, seed=1)
-    front = fe.LogMelFrontend(cfg)
+    front = fe.LogMelFrontend(port_cfg(cfg))
     got = front.raw_log_mel(torch.from_numpy(wav)).numpy()
-    nf = fe.frames_for_samples(cfg, 16000)
+    nf = fe.frames_for_samples(port_cfg(cfg), 16000)
     assert got.shape == (1, nf, cfg.num_mel_bins)
     ref = np.asarray(jfe._log_mel_spectrogram(
         cfg, jnp.asarray(jfe.make_frame_transform(cfg), jnp.float32),
@@ -83,7 +87,7 @@ def test_raw_log_mel_matches_jax(name):
 
 
 def test_kernel_frontend_cpu_path_is_the_twin_and_launches_nothing():
-    cfg = FrontendConfig(use_pallas=True)
+    cfg = tconfig.FrontendConfig(use_pallas=True)
     wav, lens = _batch([399, 30000], 41200, seed=2)   # one clip < 1 frame
     front = make_frontend(cfg)
     assert isinstance(front, fk.KernelLogMelFrontend)
@@ -100,19 +104,20 @@ def test_kernel_frontend_cpu_path_is_the_twin_and_launches_nothing():
 
 
 def test_kernel_wrappers_raise_off_cpu_and_cuda():
-    cfg = FrontendConfig()
+    cfg = tconfig.FrontendConfig()
     front = fk.KernelLogMelFrontend(cfg).to("meta")
     with pytest.raises(ValueError, match="CUDA"):
         front.raw_log_mel(torch.zeros(1, 41200, device="meta"))
     with pytest.raises(ValueError, match="framing"):
-        fk.KernelLogMelFrontend(FrontendConfig(hop_length=128))
+        fk.KernelLogMelFrontend(tconfig.FrontendConfig(hop_length=128))
 
 
 def test_frame_counts_match_jax():
     cfg = FrontendConfig()
     for n in (41200, 82160, 164080, 246000, 491760, 16000, 48000):
-        assert fe.frames_for_samples(cfg, n) == jfe.frames_for_samples(cfg, n)
+        assert fe.frames_for_samples(port_cfg(cfg), n) == \
+            jfe.frames_for_samples(cfg, n)
     ns = np.asarray([0, 399, 400, 559, 560, 491760], np.int32)
     np.testing.assert_array_equal(
-        fe.num_valid_frames(cfg, torch.from_numpy(ns)).numpy(),
+        fe.num_valid_frames(port_cfg(cfg), torch.from_numpy(ns)).numpy(),
         np.asarray(jfe.num_valid_frames(cfg, jnp.asarray(ns))))

@@ -10,7 +10,7 @@ jax needed there, hence ``--noconftest``):
 import pytest
 import torch
 
-from speech_transcript_embeddings_tpu.config import FrontendConfig
+from speech_transcript_embeddings_torch.config import FrontendConfig
 from speech_transcript_embeddings_torch.ops import flash_attention as fa
 from speech_transcript_embeddings_torch.ops import frontend as fe
 from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
@@ -51,22 +51,42 @@ def test_log_mel_kernel_matches_twin(cuda, bucket, mels):
     torch.testing.assert_close(feats, ref_feats, rtol=2e-3, atol=2e-3)
 
 
+# (t, hd, heads, L, R, length of the second clip): small bands, hd 12 (the
+# CUDA-core kernels in bf16 too), and the conformer's band L = 64, R = 8 at
+# every head dim the tensor-core kernels are built for, a zero-length clip
+FLASH_CASES = [
+    (150, 16, 2, 9, 3, 50), (128, 12, 4, 8, 2, 42), (1536, 64, 16, 64, 8, 512),
+    (200, 128, 1, 0, 5, 66), (150, 16, 2, 9, 3, 0), (150, 64, 4, 64, 8, 61),
+    (768, 64, 4, 64, 8, 500), (150, 128, 4, 64, 8, 61),
+    (768, 128, 4, 64, 8, 300), (300, 64, 4, 64, 8, 0),
+] + [(300, hd, 2, 64, 8, 170) for hd in (32, 48, 80, 96, 112)]
+FLASH_IDS = ["ragged", "hd12", "t1536", "hd128", "zero_length_row",
+             "band_t150", "band_t768", "band_t150_hd128", "band_t768_hd128",
+             "band_zero_length_clip"] + [
+                 f"band_hd{hd}" for hd in (32, 48, 80, 96, 112)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t,hd,nh,left,right", [
-    (150, 16, 2, 9, 3), (128, 12, 4, 8, 2), (1536, 64, 16, 64, 8),
-    (200, 128, 1, 0, 5)])
-def test_flash_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left, right):
+@pytest.mark.parametrize("t,hd,nh,left,right,short", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left, right,
+                                   short):
+    """K3 through the public wrapper (the tensor-core kernel for bf16 with
+    hd a multiple of 16, else the CUDA-core one) against the twin: out
+    within ``tol``, lse within 1e-3."""
     g = torch.Generator().manual_seed(t + hd)
     b = 2
     q, k, v = (torch.randn(b * nh, t, hd, generator=g).to(cuda, dtype)
                for _ in range(3))
     e = (torch.randn(left + right + 1, hd, generator=g) * 0.3).to(cuda, dtype)
-    mask = (torch.arange(t)[None, :] < torch.tensor([[t], [t // 3]])).to(cuda)
-    before = fa.flash_attention_fwd.launches
+    mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
+    name = "flash_rel_fwd" + ("_mma" if fa.flash_kernel(dtype, hd) == "mma"
+                              else "")
+    before = fa.LAUNCHES[name]
     out, lse = fa.flash_attention_fwd(q, k, v, e, mask, num_heads=nh,
                                       left_max=left)
-    assert fa.flash_attention_fwd.launches == before + 1
+    assert fa.LAUNCHES[name] == before + 1
     ref, ref_lse = fa.rel_attention_reference(q, k, v, e, mask, num_heads=nh,
                                               left_max=left)
     torch.cuda.synchronize()
@@ -89,13 +109,10 @@ def test_flash_kernel_zero_length_row_is_finite(cuda):
                                .expand_as(out[2:]), rtol=1e-4, atol=1e-5)
 
 
-
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("t,hd,nh,left,right,short", [
-    (150, 16, 2, 9, 3, 50), (128, 12, 4, 8, 2, 42), (1536, 64, 16, 64, 8, 512),
-    (200, 128, 1, 0, 5, 66), (150, 16, 2, 9, 3, 0)],
-    ids=["ragged", "hd12", "t1536", "hd128", "zero_length_row"])
+@pytest.mark.parametrize("t,hd,nh,left,right,short", FLASH_CASES,
+                         ids=FLASH_IDS)
 def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left,
                                             right, short):
     """K4 against the twin's backward on the same (out, lse): dq, dk, dv and
@@ -109,9 +126,11 @@ def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left,
     mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
     kw = dict(num_heads=nh, left_max=left)
     out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
-    before = fa.flash_attention_bwd.launches
+    name = "flash_rel_bwd" + ("_mma" if fa.flash_kernel(dtype, hd) == "mma"
+                              else "")
+    before = fa.LAUNCHES[name]
     got = fa.flash_attention_bwd(q, k, v, e, mask, out, lse, dout, **kw)
-    assert fa.flash_attention_bwd.launches == before + 1
+    assert fa.LAUNCHES[name] == before + 1
     ref = fa.rel_attention_bwd_reference(q, k, v, e, mask, out, lse, dout,
                                          **kw)
     torch.cuda.synchronize()
@@ -134,13 +153,32 @@ def test_flash_autograd_uses_both_kernels(cuda):
     for device in ("cpu", cuda):
         args = [x.to(device).detach().requires_grad_()
                 for x in (q, k, v, e)]
-        f0, b0 = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+        f0, b0 = fa.LAUNCHES["flash_rel_fwd"], fa.LAUNCHES["flash_rel_bwd"]
         out = fa.flash_attention(*args, mask.to(device), num_heads=2,
                                  left_max=9)
         out.square().sum().backward()
         if device != "cpu":
-            assert fa.flash_attention_fwd.launches == f0 + 1
-            assert fa.flash_attention_bwd.launches == b0 + 1
+            assert fa.LAUNCHES["flash_rel_fwd"] == f0 + 1
+            assert fa.LAUNCHES["flash_rel_bwd"] == b0 + 1
         grads.append([a.grad.cpu() for a in args])
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+def test_main_path_shapes_launch_the_mma_kernels(cuda):
+    """bf16 at hd 64 (the conformer's heads) goes to the tensor-core
+    kernels through the public wrappers, and never to the CUDA-core ones."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, dout = (torch.randn(32, 512, 64, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(4))
+    e = (torch.randn(73, 64, generator=g) * 0.3).to(cuda, torch.bfloat16)
+    mask = (torch.arange(512)[None, :] < torch.tensor([[512], [300]])).to(cuda)
+    before = dict(fa.LAUNCHES)
+    args = [x.detach().requires_grad_() for x in (q, k, v, e)]
+    out = fa.flash_attention(*args, mask, num_heads=16, left_max=64)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    grown = {name: n - before.get(name, 0) for name, n in fa.LAUNCHES.items()
+             if n != before.get(name, 0)}
+    assert grown == {"flash_rel_fwd_mma": 1, "flash_rel_bwd_mma": 1}
+

@@ -1,7 +1,7 @@
 """The port's HTTP service over a real socket, on the CPU (as
 tests/test_serve.py drives the JAX one): a seeded tiny retrieval model saved
 as a port checkpoint, served by ``speech_transcript_embeddings_torch.serve``
-with the JAX package's MicroBatcher and handler."""
+with the port's own MicroBatcher and handler."""
 
 import dataclasses
 import json
@@ -14,10 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from speech_transcript_embeddings_tpu.config import (
+from speech_transcript_embeddings_torch.config import (
     DataConfig, ExperimentConfig, tiny_model_config,
 )
-from speech_transcript_embeddings_tpu.data.sources import (
+from speech_transcript_embeddings_torch.data.sources import (
     synth_audio_for_sentence,
 )
 from speech_transcript_embeddings_torch import checkpoints

@@ -2,6 +2,7 @@
 run on the CPU writes a ``final_model`` that the port's serving path loads,
 and the fields the loop cannot honour raise."""
 
+import dataclasses
 import json
 import os
 
@@ -30,7 +31,9 @@ HEADS_OFF = ["model.heads.use_cross_modal=false",
 ], ids=["default", "tiny", "flagship", "flagship-roberta", "retrieval",
         "retrieval_overrides", "tiny_overrides"])
 def test_build_config_equals_the_jax_cli(argv):
-    assert torch_train.build_config(argv) == jax_train.build_config(argv)
+    # the port's own config classes: equal field by field
+    assert dataclasses.asdict(torch_train.build_config(argv)) == \
+        dataclasses.asdict(jax_train.build_config(argv))
 
 
 def test_unknown_preset_exits():

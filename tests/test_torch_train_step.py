@@ -51,6 +51,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
 )
 from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training import train_step as tts
+from torch_port_cfg import port_cfg
 
 LR = 1e-3
 
@@ -92,6 +93,7 @@ def params():
 
 
 def _port_state(cfg, params, total_steps):
+    cfg = port_cfg(cfg)
     model = DualEncoderModel(cfg.model, param_dtype=torch.float32)
     bridge.load_flax_params(model, params)
     return tts.create_train_state(model, cfg, total_steps)
@@ -123,12 +125,12 @@ def test_train_step_matches_jax(params, case):
     jstep = jts.make_train_step(cfg, JaxModel(cfg.model),
                                 LogMelFrontend(cfg.model.frontend), tx)
     state = _port_state(cfg, params, total_steps)
-    frontend = make_frontend(cfg.model.frontend)
+    frontend = make_frontend(port_cfg(cfg.model.frontend))
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     gen = torch.Generator().manual_seed(0)
     for i, batch in enumerate(batches):
         jstate, jm = jstep(jstate, batch, jax.random.PRNGKey(1))
-        m = tts.train_step(cfg, state, frontend, batch, gen)
+        m = tts.train_step(port_cfg(cfg), state, frontend, batch, gen)
         for k in ("loss", "grad_norm", "clean_hr", "corrupt_hr"):
             np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4,
                                        err_msg=f"micro-step {i}: {k}")
@@ -163,7 +165,7 @@ def test_lr_is_zero_at_the_first_update_with_warmup(params):
     cfg = _cfg(kind="pairwise", acc=1, warmup=1)
     state = _port_state(cfg, params, total_steps=4)
     before = {k: p.detach().clone() for k, p in state.trainable.items()}
-    tts.train_step(cfg, state, make_frontend(cfg.model.frontend),
+    tts.train_step(port_cfg(cfg), state, make_frontend(port_cfg(cfg.model.frontend)),
                    _host_batches(cfg, 1)[0], torch.Generator().manual_seed(0))
     assert state.optimizer.count == 1
     assert all(torch.equal(p, before[k]) for k, p in state.trainable.items())
@@ -184,7 +186,7 @@ def test_eval_step_matches_jax_with_masked_tail(params):
                              LogMelFrontend(cfg.model.frontend))(
         jstate.trainable, jstate.frozen, batch)
     state = _port_state(cfg, params, 4)
-    got = tts.eval_step(cfg, state.model, make_frontend(cfg.model.frontend),
+    got = tts.eval_step(port_cfg(cfg), state.model, make_frontend(port_cfg(cfg.model.frontend)),
                         batch)
     for k in ("loss_sum", "pairwise_loss_sum", "count", "s_pos", "s_neg",
               "example_mask"):

@@ -34,6 +34,7 @@ from speech_transcript_embeddings_torch.models.layers import (
 from speech_transcript_embeddings_torch.ops import flash_attention as fa
 from speech_transcript_embeddings_torch.training import losses
 from speech_transcript_embeddings_torch.training import optimizer as topt
+from torch_port_cfg import port_cfg
 
 
 def _heads_off(mc):
@@ -57,7 +58,8 @@ def test_init_matches_flax_distributions():
         mc.audio, apply_spec_augment=True))
     ref = bridge.flax_to_state_dict(jax.tree.map(
         np.asarray, init_params(JaxModel(mc), jax.random.PRNGKey(0))))
-    model = init_model(mc, torch.Generator().manual_seed(0), train=True)
+    model = init_model(port_cfg(mc), torch.Generator().manual_seed(0),
+                       train=True)
     got = {k: v.detach() for k, v in model.state_dict().items()}
     assert set(got) == set(ref)
     for name, w in got.items():
@@ -149,10 +151,12 @@ def test_spec_augment_apply_with_jax_draws_matches_jax():
     s_max = max(int(round(cfg.mask_time_prob * t / cfg.mask_time_length)),
                 cfg.mask_time_min_masks)
     u = torch.from_numpy(np.array(jax.random.uniform(key, (b, s_max))))
-    draw = tae.spec_augment_draw(b, t, cfg, torch.Generator().manual_seed(0))
+    draw = tae.spec_augment_draw(b, t, port_cfg(cfg),
+                                 torch.Generator().manual_seed(0))
     assert draw.shape == u.shape
     got = tae.spec_augment_apply(torch.from_numpy(x), torch.from_numpy(embed),
-                                 torch.from_numpy(mask), cfg, u).numpy()
+                                 torch.from_numpy(mask), port_cfg(cfg),
+                                 u).numpy()
     np.testing.assert_array_equal(got, ref)
     assert (got != x).any()
 
@@ -166,7 +170,7 @@ def _encoder(policy, remat, conv_dropout=0.0):
         right_max_rel_pos=3, apply_spec_augment=False,
         use_flash_attention=True, remat_policy=policy,
         conv_dropout=conv_dropout)
-    enc = tae.AudioEncoder(cfg, torch.float32, remat=remat)
+    enc = tae.AudioEncoder(port_cfg(cfg), torch.float32, remat=remat)
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for p in enc.parameters():
@@ -233,7 +237,7 @@ def test_pairwise_loss_golden():
     logits = np.stack([s_pos, s_neg], 1) / 0.1
     ce = -np.log(np.exp(logits[:, 0]) / np.exp(logits).sum(1))
     expected = ce.mean() + 0.35 * np.maximum(s_neg, 0).mean()
-    loss, aux = losses.pairwise_info_nce(cfg, *(torch.from_numpy(a)
+    loss, aux = losses.pairwise_info_nce(port_cfg(cfg), *(torch.from_numpy(a)
                                                 for a in (tp, tn, audio)))
     np.testing.assert_allclose(float(loss), expected, rtol=1e-5)
     np.testing.assert_allclose(aux.s_pos.numpy(), s_pos, rtol=1e-5)
@@ -248,11 +252,11 @@ def test_global_loss_is_the_full_matrix_softmax_ce():
     logits = au @ np.concatenate([tp, tn], 0).T / 0.1
     expected = -np.mean(logits[np.arange(5), np.arange(5)]
                         - np.log(np.exp(logits).sum(axis=1)))
-    loss, _ = losses.global_info_nce(cfg, *(torch.from_numpy(a)
+    loss, _ = losses.global_info_nce(port_cfg(cfg), *(torch.from_numpy(a)
                                             for a in (tp, tn, au)))
     np.testing.assert_allclose(float(loss), expected, rtol=1e-5)
     with pytest.raises(NotImplementedError, match="data parallel"):
-        losses.global_info_nce(cfg, *(torch.from_numpy(a)
+        losses.global_info_nce(port_cfg(cfg), *(torch.from_numpy(a)
                                       for a in (tp, tn, au)), axis_name="data")
 
 
@@ -270,7 +274,7 @@ def test_losses_match_jax(kind, gamma):
     for o, conv in ((out, torch.from_numpy), (jout, jnp.asarray)):
         o.text_pos, o.text_neg, o.audio = conv(tp), conv(tn), conv(au)
         o.alignment_scores = None
-    loss, aux = losses.compute_loss(cfg, out)
+    loss, aux = losses.compute_loss(port_cfg(cfg), out)
     jloss, jaux = jlosses.compute_loss(cfg, jout)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
     np.testing.assert_allclose(aux.s_pos.numpy(), np.asarray(jaux.s_pos),
@@ -278,7 +282,7 @@ def test_losses_match_jax(kind, gamma):
     np.testing.assert_allclose(aux.s_neg.numpy(), np.asarray(jaux.s_neg),
                                rtol=1e-5, atol=1e-6)
     m = np.array([1, 1, 1, 1, 1, 0], np.float32)
-    per = losses.global_per_sample_masked(cfg, *(torch.from_numpy(a) for a in (
+    per = losses.global_per_sample_masked(port_cfg(cfg), *(torch.from_numpy(a) for a in (
         tp, tn, au, m)))
     jper = jlosses.global_per_sample_masked(cfg, *(jnp.asarray(a) for a in (
         tp, tn, au, m)))
@@ -307,8 +311,8 @@ def test_labels_at_full_width_match_jax_without_allocating():
     for leaf, label in zip(jax.tree.leaves(shapes), jax.tree.leaves(jl)):
         want[label] += int(np.prod(leaf.shape))
     with torch.device("meta"):
-        model = DualEncoderModel(mc, param_dtype=torch.float32)
-    labels = topt.param_labels(model, freeze, mc)
+        model = DualEncoderModel(port_cfg(mc), param_dtype=torch.float32)
+    labels = topt.param_labels(model, port_cfg(freeze), port_cfg(mc))
     got = {"frozen": 0, "encoder": 0, "head": 0}
     for name, p in model.named_parameters():
         assert p.is_meta
