@@ -6,7 +6,9 @@ training.
 
 Builds the port's CUDA kernels from ``speech_transcript_embeddings_torch/
 csrc`` (nvcc, sm_90a) and holds each against its plain PyTorch twin at the
-shapes the serving and training paths give it: log-mel (phase 2), the flash
+shapes the serving and training paths give it: log-mel (phase 2, timed at
+every main-path shape beside the twin and a cuFFT composite, and its
+error per mel bin taken against float64), the flash
 forward (phase 3) and backward (phase 6). Each flash direction has a
 tensor-core kernel (bf16, the main paths) and a CUDA-core one (fp32);
 phases 3 and 6 time both, the twin and SDPA without the bias (a yardstick,
@@ -66,6 +68,30 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` in ms: the summed durations of the device
+    kernels it launches (torch.profiler), over ``iters`` calls after
+    ``warmup``. Unlike ``cuda_ms`` it does not count the gaps in which the
+    device waits for the host to launch the next kernel. A trace that lost
+    kernels (fewer than one a call) is taken again, twice at most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = _device_rows(prof)
+        if sum(calls for _, _, calls in rows) >= iters:
+            return sum(ms for ms, _, _ in rows) / iters
+    raise RuntimeError("torch.profiler recorded fewer device kernels than "
+                       "calls three times")
+
+
 def phase0():
     import torch
     if not torch.cuda.is_available():
@@ -98,56 +124,160 @@ def phase1():
         print("   ", ln)
 
 
+# (B, samples) of every log-mel launch on the main paths: training
+# micro-batches of 16 at the three CV buckets (the serving request of 16
+# clips of 4.7 s at 82,160 too) and the 30 s serving batch (3 clips → 4)
+MEL_SHAPES = ((16, 41200), (16, 82160), (16, 164080), (4, 491760))
+
+
+def mel_inputs(g, b, n):
+    """A padded waveform batch [b, n] (fp32, 0.1 noise) and its lengths on
+    the card: for b = 4 a full clip, 71%, 33% and one under a frame (399
+    samples); for more clips lengths spread from n down to 20% of n."""
+    import torch
+    if b == 4:
+        lens = [n, int(n * 0.71), int(n * 0.33), 399]
+    else:
+        lens = [n - i * (n * 4 // 5) // (b - 1) for i in range(b)]
+    lens = torch.tensor(lens, dtype=torch.int32)
+    wav = torch.randn(b, n, generator=g) * 0.1
+    wav *= torch.arange(n)[None, :] < lens[:, None]
+    return wav.cuda(), lens.cuda()
+
+
+def cufft_log_mel(cfg, wav, window, mel):
+    """The raw log-mel as a composite of PyTorch calls around cuFFT: unfold,
+    remove DC, preemphasis, window, ``torch.fft.rfft(n=512)``, power, mel
+    matmul, log. A yardstick timed beside the kernel; the port never calls
+    it."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import frontend as fe
+    b, n = wav.shape
+    nf = fe.frames_for_samples(cfg, n)
+    need = (nf - 1) * cfg.hop_length + cfg.frame_length
+    x = torch.nn.functional.pad(wav * 2.0 ** 15, (0, max(need - n, 0)))
+    d = x.unfold(1, cfg.frame_length, cfg.hop_length)[:, :nf]
+    d = d - d.mean(-1, keepdim=True)
+    p = cfg.preemphasis
+    e = torch.cat([(1.0 - p) * d[..., :1], d[..., 1:] - p * d[..., :-1]], -1)
+    spec = torch.fft.rfft(e * window, n=cfg.fft_length)
+    power = spec.real ** 2 + spec.imag ** 2
+    return torch.log(torch.clamp(power @ mel, min=cfg.mel_floor))
+
+
 def phase2():
+    """Both log-mel kernels against their twins: at every bucket (B=4, a
+    clip under one frame), then at every shape the main paths launch, where
+    they are also timed beside the twin and the cuFFT composite, the raw
+    kernel's and the twin's errors are taken per mel bin against a float64
+    evaluation, and each kernel gets its bound. Times are device time
+    (``device_ms``): a wrapper's host overhead exceeds these kernels'
+    device time, so back-to-back CUDA events (``cuda_ms``, kept as
+    ``*_call_ms``) time the host. Tolerances: raw log-mel 2e-4 (rtol and
+    atol, on the valid frames), features 2e-3, mask exact."""
+    import numpy as np
     import torch
     from speech_transcript_embeddings_torch.config import FrontendConfig
     from speech_transcript_embeddings_torch.ops import frontend as fe
     from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_log_mel_schedule import float64_log_mel
     cfg = FrontendConfig(use_pallas=True)
     front = fk.KernelLogMelFrontend(cfg).cuda()
+    window = torch.as_tensor(fe.povey_window(cfg), dtype=torch.float32,
+                             device="cuda")
+    mel_nnz = int(np.count_nonzero(fe.make_mel_filters(cfg)))
     g = torch.Generator().manual_seed(2)
     worst = {"raw": 0.0, "features": 0.0}
-    times = {}
-    for n in BUCKETS:
-        lens = torch.tensor([n, int(n * 0.71), int(n * 0.33), 399],
-                            dtype=torch.int32)
-        wav = torch.randn(4, n, generator=g) * 0.1
-        wav *= torch.arange(n)[None, :] < lens[:, None]
-        wav, lens = wav.cuda(), lens.cuda()
+
+    def check(wav, lens, what):
         raw = front.raw_log_mel(wav)
         ref_raw = fe.log_mel_reference(cfg, wav, front.transform, front.mel)
         valid = fe.num_valid_frames(cfg, lens)
-        vmask = torch.arange(raw.shape[1], device="cuda")[None, :] < valid[:, None]
+        vmask = (torch.arange(raw.shape[1], device="cuda")[None, :]
+                 < valid[:, None])
         raw_err = (raw - ref_raw).abs()[vmask].max().item()
         torch.testing.assert_close(raw[vmask], ref_raw[vmask], rtol=2e-4,
                                    atol=2e-4)
         feats, mask = front.normalize_and_stack(raw, lens)
-        ref_feats, ref_mask = fe.normalize_and_stack_reference(cfg, raw, lens)
+        ref_feats, ref_mask = fe.normalize_and_stack_reference(cfg, raw,
+                                                               lens)
         if not torch.equal(mask, ref_mask):
-            raise AssertionError(f"log-mel mask differs at bucket {n}")
+            raise AssertionError(f"log-mel mask differs at {what}")
         feat_err = (feats - ref_feats).abs().max().item()
         torch.testing.assert_close(feats, ref_feats, rtol=2e-3, atol=2e-3)
-        if not (torch.isfinite(feats).all() and feats[3].abs().max() == 0):
+        short = (valid == 0).nonzero().flatten().tolist()
+        if not torch.isfinite(feats).all() or any(
+                feats[i].abs().max() != 0 for i in short):
             raise AssertionError("non-finite features or a sub-frame clip "
                                  "with non-zero features")
-        t = {
-            "raw_ms": cuda_ms(lambda: front.raw_log_mel(wav)),
-            "raw_plain_ms": cuda_ms(lambda: fe.log_mel_reference(
-                cfg, wav, front.transform, front.mel)),
-            "norm_ms": cuda_ms(lambda: front.normalize_and_stack(raw, lens)),
-            "norm_plain_ms": cuda_ms(lambda: fe.normalize_and_stack_reference(
-                cfg, raw, lens)),
-        }
-        times[n] = t
         worst["raw"] = max(worst["raw"], raw_err)
         worst["features"] = max(worst["features"], feat_err)
-        log(2, f"bucket {n} B=4 frames {raw.shape[1]}: raw err {raw_err:.2e} "
+        return raw, ref_raw, vmask, raw_err, feat_err
+
+    for n in BUCKETS:
+        wav, lens = mel_inputs(g, 4, n)
+        raw, _, _, raw_err, feat_err = check(wav, lens, f"bucket {n}")
+        log(2, f"bucket {n} B=4 frames {raw.shape[1]}: raw err "
+               f"{raw_err:.2e} (tol 2e-4), features err {feat_err:.2e} "
+               f"(tol 2e-3), mask exact", bucket=n, frames=raw.shape[1],
+            raw_err=raw_err, feat_err=feat_err)
+    times = {}
+    for b, n in MEL_SHAPES:
+        wav, lens = mel_inputs(g, b, n)
+        raw, ref_raw, vmask, raw_err, feat_err = check(wav, lens,
+                                                       f"B={b} × {n}")
+        # whose error is it: kernel and twin against float64, per mel bin
+        ref64 = torch.as_tensor(float64_log_mel(cfg, wav.cpu().numpy()),
+                                device="cuda")
+        per_bin = {name: ((a.double() - ref64).abs() * vmask[..., None])
+                   .amax(dim=(0, 1)).tolist()
+                   for name, a in (("kernel", raw), ("twin", ref_raw))}
+        composite = cufft_log_mel(cfg, wav, window, front.mel)
+        composite_err = (composite - ref_raw).abs()[vmask].max().item()
+        del ref64, composite
+        (raw_b, raw_by), (norm_b, norm_by), (dft_b, _) = log_mel_bound(
+            n, mel_nnz, b=b)
+        raw_fn = lambda: front.raw_log_mel(wav)              # noqa: E731
+        norm_fn = lambda: front.normalize_and_stack(raw, lens)  # noqa: E731
+        t = {
+            "raw_ms": device_ms(raw_fn), "raw_call_ms": cuda_ms(raw_fn),
+            "raw_plain_ms": device_ms(lambda: fe.log_mel_reference(
+                cfg, wav, front.transform, front.mel)),
+            "cufft_composite_ms_not_one_call": device_ms(
+                lambda: cufft_log_mel(cfg, wav, window, front.mel)),
+            "norm_ms": device_ms(norm_fn), "norm_call_ms": cuda_ms(norm_fn),
+            "norm_plain_ms": device_ms(
+                lambda: fe.normalize_and_stack_reference(cfg, raw, lens)),
+            "raw_bound_ms": raw_b, "raw_bound_by": raw_by,
+            "norm_bound_ms": norm_b, "norm_bound_by": norm_by,
+            "raw_bound_ms_dft_as_dense_matmul": dft_b,
+        }
+        times[(b, n)] = t
+        top = {name: sorted(range(len(v)), key=lambda m: -v[m])[:4]
+               for name, v in per_bin.items()}
+        log(2, f"B={b} × {n} (frames {raw.shape[1]}): raw err {raw_err:.2e} "
                f"(tol 2e-4), features err {feat_err:.2e} (tol 2e-3), mask "
-               f"exact; log-mel kernel {t['raw_ms']:.3f} ms vs plain "
-               f"{t['raw_plain_ms']:.3f} ms, normalise kernel "
-               f"{t['norm_ms']:.3f} ms vs plain {t['norm_plain_ms']:.3f} ms",
-            bucket=n, frames=raw.shape[1], raw_err=raw_err,
-            feat_err=feat_err, **t)
+               f"exact; vs float64 kernel max {max(per_bin['kernel']):.2e} "
+               f"(worst bins " + ", ".join(
+                   f"{m}: {per_bin['kernel'][m]:.1e}" for m in top['kernel'])
+            + f"), twin max {max(per_bin['twin']):.2e} (worst bins "
+            + ", ".join(f"{m}: {per_bin['twin'][m]:.1e}" for m in top['twin'])
+            + f"); cuFFT composite vs twin {composite_err:.1e}. Device "
+              f"time: log-mel kernel {t['raw_ms']:.4f} ms (bound "
+              f"{raw_b:.4f} ms by {raw_by}, share {raw_b / t['raw_ms']:.1%}"
+              f"; {t['raw_call_ms']:.4f} ms a call back to back), twin "
+              f"{t['raw_plain_ms']:.4f} ms, cuFFT composite (not one call) "
+              f"{t['cufft_composite_ms_not_one_call']:.4f} ms; normalise "
+              f"kernel {t['norm_ms']:.4f} ms (bound {norm_b:.4f} ms by "
+              f"{norm_by}, share {norm_b / t['norm_ms']:.1%}; "
+              f"{t['norm_call_ms']:.4f} ms a call), twin "
+              f"{t['norm_plain_ms']:.4f} ms",
+            batch=b, samples=n, frames=raw.shape[1], raw_err=raw_err,
+            feat_err=feat_err, per_bin_err_vs_f64=per_bin,
+            cufft_composite_err=composite_err, **t)
+        del wav, lens, raw, ref_raw
+        torch.cuda.empty_cache()
     return worst, times
 
 
@@ -995,12 +1125,7 @@ def log_mel_bound(n, mel_nnz, b=4, frame=400, hop=160, fft=512, mels=80):
 
 
 def main():
-    import numpy as np
     import torch
-    from speech_transcript_embeddings_torch.config import FrontendConfig
-    from speech_transcript_embeddings_torch.ops.frontend import (
-        make_mel_filters,
-    )
     card = phase0()
     phase1()
     mel_err, mel_times = phase2()
@@ -1014,25 +1139,30 @@ def main():
              "train_fp32": train_fp32}
     by_path = {name: {p: c.get(name, 0) for p, c in paths.items()}
                for name in train}
-    big = BUCKETS[-1]
-    mel_nnz = int(np.count_nonzero(make_mel_filters(FrontendConfig())))
-    (raw_b, raw_by), (norm_b, norm_by), (dft_b, _) = log_mel_bound(
-        big, mel_nnz)
-    mel_at = f"B=4, {big} samples"
-    kernels = [
-        {"name": "log_mel", "route": "cuda", "source": f"{REPO}/csrc/log_mel.cu",
-         "replaces": f"{TPU}/ops/frontend_pallas.py:70",
-         "max_abs_err": mel_err["raw"], "ms": mel_times[big]["raw_ms"],
-         "plain_ms": mel_times[big]["raw_plain_ms"], "bound_ms": raw_b,
-         "bound_by": raw_by, "library_ms": None, "at": mel_at,
-         "bound_ms_dft_as_dense_matmul": dft_b},
-        {"name": "log_mel_normalize", "route": "cuda",
-         "source": f"{REPO}/csrc/log_mel.cu",
-         "replaces": f"{TPU}/ops/frontend_pallas.py:141",
-         "max_abs_err": mel_err["features"], "ms": mel_times[big]["norm_ms"],
-         "plain_ms": mel_times[big]["norm_plain_ms"], "bound_ms": norm_b,
-         "bound_by": norm_by, "library_ms": None, "at": mel_at},
-    ]
+    at = MEL_SHAPES[-1]
+    mel_at = f"B={at[0]}, {at[1]} samples"
+
+    def by_shape(key):
+        return {f"{b}x{n}": t[key] for (b, n), t in mel_times.items()}
+
+    kernels = []
+    for name, pre, line, err in (("log_mel", "raw", 70, mel_err["raw"]),
+                                 ("log_mel_normalize", "norm", 141,
+                                  mel_err["features"])):
+        tm = mel_times[at]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{REPO}/csrc/log_mel.cu",
+            "replaces": f"{TPU}/ops/frontend_pallas.py:{line}",
+            "max_abs_err": err, "ms": tm[f"{pre}_ms"],
+            "plain_ms": tm[f"{pre}_plain_ms"], "bound_ms": tm[f"{pre}_bound_ms"],
+            "bound_by": tm[f"{pre}_bound_by"], "library_ms": None,
+            "at": mel_at, "ms_by_shape": by_shape(f"{pre}_ms"),
+            "bound_ms_by_shape": by_shape(f"{pre}_bound_ms"),
+            "plain_ms_by_shape": by_shape(f"{pre}_plain_ms")})
+    kernels[0]["cufft_composite_ms_not_one_call"] = by_shape(
+        "cufft_composite_ms_not_one_call")
+    kernels[0]["bound_ms_dft_as_dense_matmul"] = \
+        mel_times[at]["raw_bound_ms_dft_as_dense_matmul"]
     # the flash kernels: the tensor-core pair carries the bf16 main paths;
     # the CUDA-core pair the fp32 ones, whose launches are
     # counted on phases 4 and 7; every time at the bf16 main-path shape
@@ -1072,6 +1202,8 @@ def main():
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels,
                    "flash_bwd_max_rel_err": bwd_err,
+                   "log_mel_times": {f"{b}x{n}": v for (b, n), v in
+                                     mel_times.items()},
                    "flash_fwd_times": {f"{bh}x{t}": v for (bh, t), v in
                                        fwd_times.items()},
                    "flash_bwd_times": {f"{bh}x{t}": v for (bh, t), v in

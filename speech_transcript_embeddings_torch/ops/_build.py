@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points (see the .cu files)
 _SIGNATURES = {
-    "ste_log_mel": [_P, _I, _I, _P, _P, _I, _F, _P, _I, _I, _P],
+    "ste_log_mel": [_P, _I, _I] + [_P] * 6 + [_I, _F, _F, _P, _I, _I, _P],
     "ste_log_mel_normalize": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                               _I, _P],
     "ste_flash_rel_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

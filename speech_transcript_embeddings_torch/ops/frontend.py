@@ -3,13 +3,18 @@
 Port of ``speech_transcript_embeddings_tpu/ops/frontend.py``: framing →
 remove-DC → preemphasis 0.97 → Povey window → rDFT(512) → power → 80-bin
 kaldi mel (floor 2^-23) → ln → masked per-utterance per-bin normalisation
-(ddof 1) → stride-2 frame stacking. The per-frame chain up to the DFT is one
-linear map, folded into a ``[400, 514]`` (cos ‖ sin) matrix.
+(ddof 1) → stride-2 frame stacking. In the twin, the per-frame chain up to
+the DFT is one linear map, folded into a ``[400, 514]`` (cos ‖ sin) matrix;
+the CUDA kernel computes the same map by an FFT, with the preemphasis
+applied in the frequency domain.
 
 This module holds the numpy builders of the two matrices (the JAX module
-imports jax, so they are copied here and tested equal), the frame counts,
-and the plain versions of the raw log-mel and of ``normalize_and_stack``:
-the twins of the CUDA kernels in ``frontend_kernels.py`` and the CPU path.
+imports jax, so they are copied here and tested equal), the float64 tables
+of the FFT kernel (Povey window, twiddles, preemphasis response, the mel
+bank's nonzero ranges),
+the frame counts, and the plain versions of the raw log-mel and of
+``normalize_and_stack``: the twins of the CUDA kernels in
+``frontend_kernels.py`` and the CPU path.
 """
 
 from __future__ import annotations
@@ -57,12 +62,49 @@ def make_frame_transform(cfg: FrontendConfig) -> np.ndarray:
     pre[0, 0] = 1.0 - p
     for j in range(1, n):
         pre[j - 1, j] = -p
-    window = np.hanning(n) ** 0.85
+    window = povey_window(cfg)
     t = np.arange(n)[:, None]
     k = np.arange(num_freq)[None, :]
     ang = 2.0 * np.pi * t * k / f
     lin = dc @ pre @ np.diag(window)
     return np.concatenate([lin @ np.cos(ang), lin @ -np.sin(ang)], axis=1)
+
+
+def povey_window(cfg: FrontendConfig) -> np.ndarray:
+    """Kaldi's Povey window ``hanning(frame_length) ** 0.85``, float64."""
+    return np.hanning(cfg.frame_length) ** 0.85
+
+
+def fft_twiddles(cfg: FrontendConfig) -> np.ndarray:
+    """``exp(-2πi·t / fft_length)`` for ``t < fft_length``, complex128: the
+    twiddles of the kernel's ``fft_length``-point FFT."""
+    ang = 2.0 * np.pi * np.arange(cfg.fft_length) / cfg.fft_length
+    return np.cos(ang) - 1j * np.sin(ang)
+
+
+def preemphasis_response(cfg: FrontendConfig) -> np.ndarray:
+    """``1 − p·exp(-2πi·k / fft_length)`` for the ``fft_length//2 + 1``
+    bins, complex128: the preemphasis filter in the frequency domain."""
+    k = np.arange(cfg.fft_length // 2 + 1)
+    ang = 2.0 * np.pi * k / cfg.fft_length
+    return 1.0 - cfg.preemphasis * (np.cos(ang) - 1j * np.sin(ang))
+
+
+def mel_filter_ranges(cfg: FrontendConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Sparse form of ``make_mel_filters``: ``ranges`` int32 ``[num_mel_bins,
+    2]`` (first FFT bin, number of bins) of each filter's nonzeros and their
+    float64 weights packed filter after filter (501 at the default config).
+    A triangular filter's nonzeros are contiguous; raises if one is not."""
+    mel = make_mel_filters(cfg)
+    ranges, weights = [], []
+    for m in range(mel.shape[1]):
+        nz = np.flatnonzero(mel[:, m])
+        start = int(nz[0]) if nz.size else 0
+        if nz.size and nz[-1] - start + 1 != nz.size:
+            raise ValueError(f"mel filter {m} has non-contiguous nonzeros")
+        ranges.append((start, nz.size))
+        weights.append(mel[start:start + nz.size, m])
+    return np.asarray(ranges, np.int32), np.concatenate(weights)
 
 
 def num_valid_frames(cfg: FrontendConfig, num_samples: torch.Tensor

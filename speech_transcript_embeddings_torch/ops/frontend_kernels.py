@@ -2,10 +2,13 @@
 
 Port of the two Pallas kernels of ``speech_transcript_embeddings_tpu/ops/
 frontend_pallas.py`` (``_kernel`` and ``_fused_kernel``): ``log_mel`` is the
-raw log-mel at every bucket, ``normalize_and_stack`` the masked per-bin
-normalisation, stacking and mask. Together they compute the fused kernel's
-function; the 30 s bucket, which the TPU sent to the tiled kernel, runs the
-same pair.
+raw log-mel at every bucket (a real FFT per frame and the sparse mel
+product), ``normalize_and_stack`` the masked per-bin normalisation,
+stacking and mask (a cluster of blocks per clip). Together they compute the
+fused kernel's function; the 30 s bucket, which the TPU sent to the tiled
+kernel, runs the same pair. The FFT kernel reads small fp32 tables built
+once per config and device from ``frontend.py``'s float64 builders
+(``kernel_tables``).
 
 Each wrapper takes the plain twin of ``frontend.py`` for a CPU tensor and
 launches its kernel for a CUDA tensor; any other device raises. ``launches``
@@ -16,8 +19,10 @@ show which buckets went through the kernel).
 from __future__ import annotations
 
 import collections
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from speech_transcript_embeddings_torch.config import FrontendConfig
@@ -36,9 +41,53 @@ def _require_cuda(name, *tensors):
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
 
 
+# the FFT's imaginary input is V_SCALE · Δwindow · s: a power of two that
+# brings it to the real input's magnitude (see csrc/log_mel.cu)
+V_SCALE = 128.0
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(cfg: FrontendConfig) -> Dict[str, np.ndarray]:
+    """The FFT kernel's tables, each built in float64 and rounded once to
+    fp32 (int32 for the ranges): ``window`` ``[frame_length]`` (Povey),
+    ``window_step`` ``[frame_length + 1]`` (V_SCALE·(w[j] − w[j−1]), w zero
+    outside the frame), ``twiddles`` ``[fft_length, 2]`` (re, im of
+    ``exp(-2πi·t / fft_length)``), ``response`` ``[fft_length//2 + 1, 2]``
+    (the preemphasis response), ``mel_ranges`` ``[num_mel_bins, 3]`` (first
+    FFT bin, number of bins, offset into the weights) and ``mel_weights``,
+    the nonzeros of ``make_mel_filters`` packed filter after filter."""
+    ranges, weights = fe.mel_filter_ranges(cfg)
+    offsets = np.cumsum(ranges[:, 1]) - ranges[:, 1]
+    window = fe.povey_window(cfg)
+    tw, resp = fe.fft_twiddles(cfg), fe.preemphasis_response(cfg)
+    tables = {
+        "window": window.astype(np.float32),
+        "window_step": (V_SCALE * np.diff(window, prepend=0.0, append=0.0)
+                        ).astype(np.float32),
+        "twiddles": np.stack([tw.real, tw.imag], axis=-1).astype(np.float32),
+        "response": np.stack([resp.real, resp.imag],
+                             axis=-1).astype(np.float32),
+        "mel_ranges": np.concatenate([ranges, offsets[:, None]],
+                                     axis=1).astype(np.int32),
+        "mel_weights": weights.astype(np.float32),
+    }
+    for a in tables.values():
+        a.flags.writeable = False
+    return tables
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tables(cfg: FrontendConfig, device: torch.device):
+    return {k: torch.from_numpy(v.copy()).to(device)
+            for k, v in kernel_tables(cfg).items()}
+
+
 def log_mel(cfg: FrontendConfig, waveform: torch.Tensor,
             transform: torch.Tensor, mel: torch.Tensor) -> torch.Tensor:
-    """Raw log-mel ``[B, F, num_mel_bins]`` fp32 of a padded waveform batch."""
+    """Raw log-mel ``[B, F, num_mel_bins]`` fp32 of a padded waveform batch.
+    ``transform`` and ``mel`` are the twin's dense matrices (the CPU path
+    uses them); the kernel checks their shapes and reads the sparse form of
+    ``make_mel_filters(cfg)`` from ``kernel_tables`` instead."""
     if waveform.device.type == "cpu":
         return fe.log_mel_reference(cfg, waveform, transform, mel)
     _check_framing(cfg)
@@ -51,15 +100,15 @@ def log_mel(cfg: FrontendConfig, waveform: torch.Tensor,
                          f"{tuple(mel.shape)}")
     num_frames = fe.frames_for_samples(cfg, n)
     wave = waveform.float().contiguous()
-    transform = transform.float().contiguous()
-    mel = mel.float().contiguous()
+    tab = _device_tables(cfg, wave.device)
     out = torch.empty((b, num_frames, cfg.num_mel_bins), dtype=torch.float32,
                       device=wave.device)
     device, stream = _build.launch_args(wave)
     code = _build.library().ste_log_mel(
-        wave.data_ptr(), b, n, transform.data_ptr(), mel.data_ptr(),
-        cfg.num_mel_bins, float(cfg.mel_floor), out.data_ptr(), num_frames,
-        device, stream)
+        wave.data_ptr(), b, n, *(tab[k].data_ptr() for k in (
+            "window", "window_step", "twiddles", "response", "mel_ranges",
+            "mel_weights")), cfg.num_mel_bins, cfg.preemphasis / V_SCALE,
+        float(cfg.mel_floor), out.data_ptr(), num_frames, device, stream)
     _build.check(code, "ste_log_mel")
     log_mel.launches += 1
     log_mel.launches_by_frames[num_frames] += 1

@@ -32,13 +32,43 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("bucket", [16000, 41200, 491760])
-@pytest.mark.parametrize("mels", [80, 8])
-def test_log_mel_kernel_matches_twin(cuda, bucket, mels):
-    cfg = FrontendConfig(num_mel_bins=mels)
-    g = torch.Generator().manual_seed(bucket)
-    lens = torch.tensor([bucket, 399, bucket // 3], dtype=torch.int32)
-    wav = torch.randn(3, bucket, generator=g) * 0.1
+# (clips, bucket, lengths, per-bin normalisation): a full clip, one under a
+# frame and a third; the main paths' B=16 batches at 82,160 and 164,080
+# (lengths spread over the bucket); clips all shorter than one cluster
+# rank's slice (32 frames at 41,200), so ranks 1-7 of every clip see no
+# valid frame; the unnormalised path; and a 60 s bucket, whose 80-bin slice
+# (752 frames) is too large to keep in shared memory. 13 bins take the
+# normalisation's scalar (not float4) loads and stores
+LOG_MEL_CASES = {
+    "b3_16000": (3, 16000, "full_sub_third", True),
+    "b3_41200": (3, 41200, "full_sub_third", True),
+    "b3_491760": (3, 491760, "full_sub_third", True),
+    "b16_82160": (16, 82160, "spread", True),
+    "b16_164080": (16, 164080, "spread", True),
+    "b4_41200_under_one_slice": (4, 41200, "under_one_slice", True),
+    "b3_41200_no_per_bin": (3, 41200, "full_sub_third", False),
+    "b3_960000": (3, 960000, "full_sub_third", True),
+}
+
+
+def _log_mel_lengths(batch, bucket, kind):
+    if kind == "full_sub_third":
+        return [bucket, 399, bucket // 3]
+    if kind == "spread":
+        return [bucket - i * (bucket - 399) // (batch - 1)
+                for i in range(batch)]
+    return [399, 400, 3000, 5359]          # 0, 1, 17 and 31 frames
+
+
+@pytest.mark.parametrize("case", list(LOG_MEL_CASES))
+@pytest.mark.parametrize("mels", [80, 8, 13])
+def test_log_mel_kernel_matches_twin(cuda, case, mels):
+    batch, bucket, kind, per_bin = LOG_MEL_CASES[case]
+    cfg = FrontendConfig(num_mel_bins=mels, per_bin_normalize=per_bin)
+    g = torch.Generator().manual_seed(bucket + batch)
+    lens = torch.tensor(_log_mel_lengths(batch, bucket, kind),
+                        dtype=torch.int32)
+    wav = torch.randn(batch, bucket, generator=g) * 0.1
     wav *= torch.arange(bucket)[None, :] < lens[:, None]
     wav, lens = wav.to(cuda), lens.to(cuda)
     front = fk.KernelLogMelFrontend(cfg).to(cuda)
