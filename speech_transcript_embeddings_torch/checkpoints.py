@@ -1,15 +1,23 @@
-"""Port checkpoints: ``metadata.json`` (the JAX schema) + ``model.pt``.
+"""Port checkpoints: ``metadata.json`` (the JAX schema) + ``model.pt``
+(+ ``optimizer.pt``).
 
-``metadata.json`` carries ``format_version``, ``kind``, ``info`` and the full
-``ExperimentConfig`` as JSON, like the JAX package's checkpoints
-(``training/checkpoints.py``), with ``kind = "torch_params"``; ``model.pt``
-is ``torch.save`` of the model's ``state_dict`` in the dtypes it is stored
-in (a trained model: fp32 trainable parameters, the frozen split in its
-frozen dtype). Loading casts every tensor to the storage of the model it
-goes into: ``load_checkpoint`` to the serving storage (Dense and Embed
-weights in the compute dtype), ``load_into`` to a given model's. Orbax
-checkpoints are not read here: bring one across with ``bridge.py`` in a
-process that has JAX.
+``metadata.json`` carries ``format_version``, ``kind = "torch_params"`` and
+the full ``ExperimentConfig`` as JSON, like the JAX package's checkpoints
+(``training/checkpoints.py``). A training checkpoint (``save_checkpoint``:
+``latest``, ``best_model_loss``, ``best_model_gap``, ``checkpoint_epoch_N``,
+``final_model``) adds JAX's ``epoch``, ``params_only`` and ``metrics``; a
+params checkpoint (``save_params_checkpoint``: a model alone, e.g. seeded
+serving weights) adds ``info``. ``model.pt`` is ``torch.save`` of the
+model's ``state_dict`` in the dtypes it is stored in (a trained model: fp32
+trainable parameters, the frozen split in its frozen dtype); unless the
+checkpoint is params-only, ``optimizer.pt`` holds the optimizer's
+``state_dict`` and the micro-step count, which ``restore_checkpoint`` needs
+to resume. Loading casts every tensor to the storage of the model it goes
+into: ``load_checkpoint`` to the serving storage (Dense and Embed weights in
+the compute dtype), ``load_into`` to a given model's. Every checkpoint is
+written into ``path.tmp`` and renamed over ``path``, so a crash mid-save
+never destroys the previous one. Orbax checkpoints are not read here: bring
+one across with ``bridge.py`` in a process that has JAX.
 """
 
 from __future__ import annotations
@@ -39,20 +47,75 @@ def load_metadata(path: str) -> dict:
         return json.load(f)
 
 
-def save_checkpoint(path: str, model: DualEncoderModel, cfg: ExperimentConfig,
-                    info: Optional[dict] = None) -> None:
-    """Write atomically: into ``path.tmp``, then rename over ``path``."""
+def _atomic_replace(tmp: str, path: str) -> None:
+    old = path + ".old"
+    shutil.rmtree(old, ignore_errors=True)
+    if os.path.exists(path):
+        os.rename(path, old)
+    os.rename(tmp, path)
+    shutil.rmtree(old, ignore_errors=True)
+
+
+def _write(path: str, meta: dict, files: dict) -> int:
+    """Write ``files`` (name → object for ``torch.save``) and the metadata
+    into ``path.tmp``, rename it over ``path``; → bytes written."""
     path = os.path.abspath(path)
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(model.state_dict(), os.path.join(tmp, "model.pt"))
-    meta = {"format_version": FORMAT_VERSION, "kind": KIND,
-            "info": info or {}, "config": json.loads(cfg.to_json())}
+    for name, obj in files.items():
+        torch.save(obj, os.path.join(tmp, name))
     with open(os.path.join(tmp, "metadata.json"), "w") as f:
         json.dump(meta, f, indent=2)
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
+    size = sum(os.path.getsize(os.path.join(tmp, n)) for n in os.listdir(tmp))
+    _atomic_replace(tmp, path)
+    return size
+
+
+def save_params_checkpoint(path: str, model: DualEncoderModel,
+                           cfg: ExperimentConfig,
+                           info: Optional[dict] = None) -> int:
+    """A model's weights alone (no optimizer state); → bytes written."""
+    meta = {"format_version": FORMAT_VERSION, "kind": KIND,
+            "info": info or {}, "config": json.loads(cfg.to_json())}
+    return _write(path, meta, {"model.pt": model.state_dict()})
+
+
+def save_checkpoint(path: str, state, cfg: ExperimentConfig, epoch: int,
+                    metrics: Optional[dict] = None,
+                    params_only: bool = False) -> int:
+    """A training checkpoint of ``state`` (a ``TrainState``) after
+    ``epoch``; ``params_only`` leaves out ``optimizer.pt`` (the best and
+    final checkpoints, which are only evaluated or served). → bytes
+    written."""
+    meta = {"format_version": FORMAT_VERSION, "kind": KIND, "epoch": epoch,
+            "params_only": params_only, "metrics": metrics or {},
+            "config": json.loads(cfg.to_json())}
+    files = {"model.pt": state.model.state_dict()}
+    if not params_only:
+        files["optimizer.pt"] = {"step": state.step,
+                                 "optimizer": state.optimizer.state_dict()}
+    return _write(path, meta, files)
+
+
+@torch.no_grad()
+def restore_checkpoint(path: str, state):
+    """Load a full training checkpoint into ``state`` in place (weights in
+    the dtypes ``state.model`` stores them in, the optimizer's state, the
+    micro-step count) → ``state``. A params-only checkpoint has no
+    optimizer state to resume from and is refused."""
+    if load_metadata(path).get("params_only", True):
+        raise ValueError(
+            f"{path} is a params-only checkpoint (no optimizer state): load "
+            "it with load_into / load_checkpoint, or resume from the "
+            "'latest' checkpoint instead")
+    load_into(path, state.model)
+    device = next(state.model.parameters()).device
+    saved = torch.load(os.path.join(path, "optimizer.pt"),
+                       map_location=device, weights_only=True)
+    state.optimizer.load_state_dict(saved["optimizer"])
+    state.step = int(saved["step"])
+    return state
 
 
 def load_checkpoint(path: str, device="cpu"

@@ -2,7 +2,9 @@
 
 Port of ``speech_transcript_embeddings_tpu/inference/embed.py``: an
 ``Embedder`` over a ``DualEncoderModel`` and its log-mel frontend, with the
-JAX API — ``embed_texts``, ``embed_audios``, ``embed_pair`` and
+JAX API — ``embed_texts`` and ``embed_audios`` (independent projection-space
+embeddings), ``embed_pair`` and ``pair_similarities`` (the model's pair
+forward, cross-modal fusion included when the config fuses) and
 ``similarity`` — plus a vectorised ``retrieval_metrics``. Requests keep the
 JAX package's shapes: rows padded to a power of two, and audio padded to
 one of the configured buckets after peak normalisation, so the kernels see
@@ -124,18 +126,31 @@ class Embedder:
         return self._embed_audio(wav, lens).cpu().numpy()[:n]
 
     @torch.inference_mode()
+    def _pair(self, ids, masks, wav, lens) -> Tuple[np.ndarray, np.ndarray]:
+        features, amask = self.frontend(self._t(wav), self._t(lens))
+        text_emb, audio_emb = self.model.forward_pair({
+            "input_ids": self._t(ids), "attention_mask": self._t(masks),
+            "input_features": features, "attention_mask_audio": amask})
+        return text_emb.cpu().numpy(), audio_emb.cpu().numpy()
+
     def embed_pair(self, text: str, audio: np.ndarray
                    ) -> Tuple[float, np.ndarray, np.ndarray]:
         """The model's pair forward (``forward_pair``) → (similarity,
         text_emb, audio_emb)."""
-        ids, mask = self._tokenize([text])
-        wav, lens = self._pad_audio([audio])
-        features, amask = self.frontend(self._t(wav), self._t(lens))
-        text_emb, audio_emb = self.model.forward_pair({
-            "input_ids": self._t(ids), "attention_mask": self._t(mask),
-            "input_features": features, "attention_mask_audio": amask})
-        te, ae = text_emb[0].cpu().numpy(), audio_emb[0].cpu().numpy()
-        return float(np.sum(te * ae)), te, ae
+        te, ae = self._pair(*self._tokenize([text]), *self._pad_audio([audio]))
+        return float(np.sum(te[0] * ae[0])), te[0], ae[0]
+
+    def pair_similarities(self, texts: Sequence[str],
+                          audios: Sequence[np.ndarray]) -> np.ndarray:
+        """The pair forward's similarity of each (text, audio) pair — the
+        score the reference's batch inference writes — in one call per row
+        bucket."""
+        n = len(texts)
+        if n != len(audios):
+            raise ValueError(f"{n} texts for {len(audios)} clips")
+        te, ae = self._pair(*self._pad_rows(*self._tokenize(texts),
+                                            *self._pad_audio(audios)))
+        return np.sum(te[:n] * ae[:n], axis=1)
 
     @staticmethod
     def similarity(a: np.ndarray, b: np.ndarray) -> np.ndarray:

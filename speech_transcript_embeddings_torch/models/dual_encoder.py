@@ -1,15 +1,17 @@
-"""The dual-encoder speech↔transcript embedding model (retrieval path).
+"""The dual-encoder speech↔transcript embedding model.
 
-Port of ``speech_transcript_embeddings_tpu/models/dual_encoder.py`` with the
-pair-fusion heads off, which is ``retrieval_model_config()``: encoder →
-attentive pooling (or CLS / masked mean) → projection → L2 norm, for one
-transcript per clip (``forward_pair``, serving) or for the clean and the
-corrupted transcript of each clip in one 2B-row text call
-(``forward_pos_neg``, training). The encoders run in ``cfg.dtype``; the
-heads run in fp32, as in the JAX model. A ``generator`` turns dropout and
-SpecAugment on (JAX's ``deterministic=False``). Cross-modal fusion and word
-alignment are not ported yet: a config that asks for them raises rather
-than run a partial model.
+Port of ``speech_transcript_embeddings_tpu/models/dual_encoder.py``:
+encoder → attentive pooling (or CLS / masked mean) → projection, then, when
+``heads.use_cross_modal`` is on, each pooled projection attends to the
+other modality's sequence (mapped into projection space) and is fused with
+what it attended to (``apply_cross_modal``) → L2 norm. ``forward_pair``
+takes one transcript per clip (serving); ``forward_pos_neg`` the clean and
+the corrupted transcript of each clip in one 2B-row text call (training),
+with the audio tiled against both for the fusion, and the word-alignment
+head (``heads.use_word_alignment``) over the clean transcript. The encoders
+run in ``cfg.dtype``; the heads run in fp32, as in the JAX model. A
+``generator`` turns dropout and SpecAugment on (JAX's
+``deterministic=False``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from speech_transcript_embeddings_torch.models.audio_encoder import (
     AudioEncoder, ConvModule, RelPositionAttention,
 )
 from speech_transcript_embeddings_torch.models.heads import (
-    AttentivePooling, EnhancedProjection,
+    AttentivePooling, CrossModalAttention, EnhancedProjection,
+    WordLevelAlignment,
 )
 from speech_transcript_embeddings_torch.models.layers import (
     Dense, Embed, LayerNorm,
@@ -52,7 +55,8 @@ class PosNegOutput(NamedTuple):
     text_pos: torch.Tensor       # [B, D] normalised
     text_neg: torch.Tensor       # [B, D] normalised
     audio: torch.Tensor          # [B, D] normalised
-    alignment_scores: Optional[torch.Tensor] = None   # word alignment: not ported
+    alignment_scores: Optional[torch.Tensor] = None   # [B, T_text]
+    alignment_matrix: Optional[torch.Tensor] = None   # [B, T_text, T_audio]
 
 
 class DualEncoderModel(nn.Module):
@@ -64,12 +68,6 @@ class DualEncoderModel(nn.Module):
                  param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         heads = cfg.heads
-        if heads.use_cross_modal or heads.use_word_alignment:
-            raise NotImplementedError(
-                "the cross-modal fusion and word-alignment heads are not "
-                "ported yet (ROADMAP.md, Queue 1); use a config with "
-                "heads.use_cross_modal=False and heads.use_word_alignment="
-                "False, e.g. retrieval_model_config()")
         self.cfg = cfg
         dtype = compute_dtype(cfg)
         self.text_encoder = TextEncoder(cfg.text, dtype, param_dtype,
@@ -84,6 +82,22 @@ class DualEncoderModel(nn.Module):
         if heads.use_attentive_pooling:
             self.text_pooling = AttentivePooling(cfg.text.hidden_size)
             self.audio_pooling = AttentivePooling(cfg.audio.hidden_size)
+        d = heads.projection_dim
+        if heads.use_cross_modal:
+            self.text_seq_to_projection = Dense(cfg.text.hidden_size, d)
+            self.audio_seq_to_projection = Dense(cfg.audio.hidden_size, d)
+            self.text_to_audio_attention = CrossModalAttention(
+                d, heads.cross_modal_heads, heads.dropout)
+            self.audio_to_text_attention = CrossModalAttention(
+                d, heads.cross_modal_heads, heads.dropout)
+            self.text_fusion = Dense(2 * d, d)
+            self.text_fusion_norm = LayerNorm(d, 1e-5)
+            self.audio_fusion = Dense(2 * d, d)
+            self.audio_fusion_norm = LayerNorm(d, 1e-5)
+        if heads.use_word_alignment:
+            self.word_level_alignment = WordLevelAlignment(
+                cfg.text.hidden_size, cfg.audio.hidden_size, d,
+                heads.alignment_heads, heads.dropout)
 
     def encode_text(self, input_ids, attention_mask=None, generator=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,29 +121,72 @@ class DualEncoderModel(nn.Module):
             pooled = hidden.mean(dim=1)
         return self.audio_projection(pooled, generator), hidden
 
+    def apply_cross_modal(self, text_projected, text_hidden, text_mask,
+                          audio_projected, audio_hidden, audio_mask,
+                          generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fuse each pooled projection with its attention over the other
+        modality's sequence in projection space (identity when
+        ``heads.use_cross_modal`` is off)."""
+        if not self.cfg.heads.use_cross_modal:
+            return text_projected, audio_projected
+        audio_seq = self.audio_seq_to_projection(audio_hidden)
+        text_seq = self.text_seq_to_projection(text_hidden)
+        text_attended = self.text_to_audio_attention(
+            text_projected[:, None, :], audio_seq, audio_mask,
+            generator)[:, 0, :]
+        audio_attended = self.audio_to_text_attention(
+            audio_projected[:, None, :], text_seq, text_mask,
+            generator)[:, 0, :]
+        text_fused = self.text_fusion_norm(self.text_fusion(
+            torch.cat([text_projected, text_attended], dim=-1)))
+        audio_fused = self.audio_fusion_norm(self.audio_fusion(
+            torch.cat([audio_projected, audio_attended], dim=-1)))
+        return text_fused, audio_fused
+
     def forward_pair(self, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One transcript per clip → (text_emb, audio_emb), L2-normalised."""
-        text, _ = self.encode_text(batch["input_ids"], batch["attention_mask"])
-        audio, _ = self.encode_audio(batch["input_features"],
-                                     batch["attention_mask_audio"])
+        """One transcript per clip → (text_emb, audio_emb), fused when the
+        config fuses, L2-normalised."""
+        text, text_hidden = self.encode_text(batch["input_ids"],
+                                             batch["attention_mask"])
+        audio, audio_hidden = self.encode_audio(batch["input_features"],
+                                                batch["attention_mask_audio"])
+        text, audio = self.apply_cross_modal(
+            text, text_hidden, batch["attention_mask"], audio, audio_hidden,
+            batch["attention_mask_audio"])
         return l2_normalize(text), l2_normalize(audio)
 
     def forward_pos_neg(self, batch: Dict[str, torch.Tensor],
                         generator: Optional[torch.Generator] = None
                         ) -> PosNegOutput:
         """Clean and corrupted transcript against one clip: both transcripts
-        in one 2B-row text-encoder call, as the JAX model encodes them."""
+        in one 2B-row text-encoder call, as the JAX model encodes them. Both
+        fusions run in one call over the audio tiled twice; the audio
+        embedding returned is the one fused against the clean transcript
+        (the reference's semantics)."""
         b = batch["input_ids_pos"].shape[0]
+        amask = batch["attention_mask_audio"]
         ids = torch.cat([batch["input_ids_pos"], batch["input_ids_neg"]], 0)
         tmask = torch.cat([batch["attention_mask_pos"],
                            batch["attention_mask_neg"]], 0)
-        text, _ = self.encode_text(ids, tmask, generator)
-        audio, _ = self.encode_audio(batch["input_features"],
-                                     batch["attention_mask_audio"], generator)
+        text, text_hidden = self.encode_text(ids, tmask, generator)
+        audio, audio_hidden = self.encode_audio(batch["input_features"],
+                                                amask, generator)
+        if self.cfg.heads.use_cross_modal:
+            text, audio2 = self.apply_cross_modal(
+                text, text_hidden, tmask, torch.cat([audio] * 2, 0),
+                torch.cat([audio_hidden] * 2, 0), torch.cat([amask] * 2, 0),
+                generator)
+            audio = audio2[:b]
+        scores = matrix = None
+        if self.cfg.heads.use_word_alignment:
+            _, scores, matrix = self.word_level_alignment(
+                text_hidden[:b], audio_hidden, batch["attention_mask_pos"],
+                amask, generator)
         return PosNegOutput(text_pos=l2_normalize(text[:b]),
                             text_neg=l2_normalize(text[b:]),
-                            audio=l2_normalize(audio))
+                            audio=l2_normalize(audio),
+                            alignment_scores=scores, alignment_matrix=matrix)
 
     def forward(self, batch, generator=None):
         if "input_ids_pos" in batch:

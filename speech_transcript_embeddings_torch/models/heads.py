@@ -1,15 +1,18 @@
-"""Projection and pooling heads (``EnhancedProjection``, ``AttentivePooling``).
+"""Projection, pooling and fusion heads of the dual encoder.
 
-Port of the retrieval-path heads of
-``speech_transcript_embeddings_tpu/models/heads.py``. They have no compute
-dtype in the JAX model, so they run in fp32 on whatever the encoders return.
-``CrossModalAttention`` and ``WordLevelAlignment`` are not ported yet
-(ROADMAP.md).
+Port of ``speech_transcript_embeddings_tpu/models/heads.py``:
+``EnhancedProjection``, ``AttentivePooling``, ``CrossModalAttention`` and
+``WordLevelAlignment``. They have no compute dtype in the JAX model, so they
+run in fp32 on whatever the encoders return (a bf16 hidden state is widened
+first, as Flax's dtype promotion does). The two attention heads are plain
+products and a softmax: ``WordLevelAlignment`` returns its probabilities,
+which a fused attention call cannot. Masked scores are filled with −1e9, not
+−inf, so a clip with no valid frame gives uniform probabilities, not NaN.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -63,3 +66,99 @@ class AttentivePooling(nn.Module):
             s = torch.where(mask == 0, torch.full_like(s, NEG_INF), s)
         w = torch.softmax(s.float(), dim=-1).to(hidden.dtype)
         return torch.einsum("bt,bth->bh", w, hidden)
+
+
+def _probs(scores: torch.Tensor, mask: Optional[torch.Tensor], rate: float,
+           generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Masked (−1e9 where ``mask`` is 0) softmax over the keys in fp32,
+    then dropout: ``scores [B, h, Tq, Tk]``, ``mask [B, Tk]``."""
+    if mask is not None:
+        scores = torch.where(mask[:, None, None, :] == 0,
+                             torch.full_like(scores, NEG_INF), scores)
+    probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+    return dropout(probs, rate, generator)
+
+
+class CrossModalAttention(nn.Module):
+    """Multi-head attention of ``x [B, Tq, D]`` over ``context [B, Tk, D]``
+    with a key mask ``[B, Tk]`` (1 = keep); scale head_dim^−½, dropout on
+    the probabilities."""
+
+    def __init__(self, dim: int, num_heads: int = 8, dropout: float = 0.0):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.dropout_rate = dropout
+        self.query = Dense(dim, dim)
+        self.key = Dense(dim, dim)
+        self.value = Dense(dim, dim)
+        self.out = Dense(dim, dim)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        d = x.shape[-1]
+        hd = d // self.num_heads
+        split = lambda h: h.reshape(*h.shape[:-1], self.num_heads, hd)  # noqa: E731
+        q = split(self.query(x))
+        k = split(self.key(context))
+        v = split(self.value(context))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
+        probs = _probs(scores, mask, self.dropout_rate, generator)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.out(out.reshape(*x.shape[:-1], d))
+
+
+class WordLevelAlignment(nn.Module):
+    """Soft alignment of text tokens onto audio frames: tokens (queries)
+    attend to frames in a shared ``alignment_dim`` space, the attended
+    representation joins a residual (the raw text hidden state when its
+    width is ``alignment_dim``, else the projected one) under a LayerNorm,
+    and a small MLP scores each token. → (aligned ``[B, Tt, D]``, token
+    scores ``[B, Tt]`` zeroed on padded tokens, the alignment matrix
+    ``[B, Tt, Ta]``: the probabilities averaged over heads)."""
+
+    def __init__(self, text_dim: int, audio_dim: int, alignment_dim: int,
+                 num_heads: int = 4, dropout: float = 0.0):
+        super().__init__()
+        d = alignment_dim
+        self.num_heads = num_heads
+        self.dropout_rate = dropout
+        self.text_proj = Dense(text_dim, d)
+        self.audio_proj = Dense(audio_dim, d)
+        self.attn_q = Dense(d, d)
+        self.attn_k = Dense(d, d)
+        self.attn_v = Dense(d, d)
+        self.attn_out = Dense(d, d)
+        self.output_proj = Dense(d, d)
+        self.norm = LayerNorm(d, 1e-5)
+        self.confidence_in = Dense(d, d // 2)
+        self.confidence_out = Dense(d // 2, 1)
+
+    def forward(self, text_hidden: torch.Tensor, audio_hidden: torch.Tensor,
+                text_mask: Optional[torch.Tensor] = None,
+                audio_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        d = self.text_proj.weight.shape[0]
+        hd = d // self.num_heads
+        text_proj = self.text_proj(text_hidden)
+        audio_proj = self.audio_proj(audio_hidden)
+        split = lambda h: h.reshape(*h.shape[:-1], self.num_heads, hd)  # noqa: E731
+        q = split(self.attn_q(text_proj))
+        k = split(self.attn_k(audio_proj))
+        v = split(self.attn_v(audio_proj))
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
+        probs = _probs(scores, audio_mask, self.dropout_rate, generator)
+        attended = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        attended = self.attn_out(attended.reshape(text_proj.shape))
+        alignment_matrix = probs.mean(dim=1)
+        residual = (text_hidden.float() if text_hidden.shape[-1] == d
+                    else text_proj)
+        aligned = self.norm(residual + self.output_proj(attended))
+        conf = F.relu(self.confidence_in(aligned))
+        scores = self.confidence_out(conf)[..., 0]
+        if text_mask is not None:
+            scores = scores * text_mask.to(scores.dtype)
+        return aligned, scores, alignment_matrix

@@ -6,15 +6,24 @@
 The presets and the dotted ``k=v`` overrides are those of
 ``speech_transcript_embeddings_tpu.train`` (that module imports the JAX
 training loop, so the table is copied here and a test holds the two equal).
-``device`` defaults to ``cuda``; ``cuda`` without a card raises, and
-nothing falls back to the CPU. Examples:
+All four presets run: ``tiny``, ``flagship`` and ``flagship-roberta`` with
+the cross-modal fusion heads (and word alignment in the first two),
+``retrieval`` without. ``device`` defaults to ``cuda``; ``cuda`` without a
+card raises, and nothing falls back to the CPU. Rerunning with the same
+``train.output_dir`` resumes from its ``latest`` checkpoint, mid-epoch
+after a preemption (SIGTERM). Examples:
 
     # tiny synthetic smoke run on the CPU
     python -m speech_transcript_embeddings_torch.train preset=tiny \\
         device=cpu train.num_epochs=1 \\
         train.output_dir=speech_transcript_embeddings_torch/_build/torch_smoke
 
-    # the retrieval recipe at full width on one GPU (synthetic data)
+    # the reference-parity model at full width on one GPU (synthetic data)
+    python -m speech_transcript_embeddings_torch.train preset=flagship \\
+        data.synthetic_length_profile=cv \\
+        train.output_dir=speech_transcript_embeddings_torch/_build/torch_flag
+
+    # the retrieval recipe
     python -m speech_transcript_embeddings_torch.train preset=retrieval \\
         data.synthetic_length_profile=cv \\
         train.output_dir=speech_transcript_embeddings_torch/_build/torch_ret

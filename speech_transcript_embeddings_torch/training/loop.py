@@ -1,25 +1,30 @@
-"""Experiment driver: epochs, evaluation, the final checkpoint.
+"""The experiment: epochs, evaluation, checkpoints, artifacts.
 
-Port of the main line of ``speech_transcript_embeddings_tpu/training/
-loop.py``: set-up and logging, the exact LR-schedule accounting, the epoch
-loop over ``DataPipeline.epoch_batches`` with host prefetch, validation
-each epoch, and the ``final_model`` checkpoint, which the port's serving
-path loads. The data pipeline, the synthetic/Common Voice sources, the
+Port of ``speech_transcript_embeddings_tpu/training/loop.py``: set-up and
+logging, the exact LR-schedule accounting, resume from ``latest`` (weights,
+optimizer state, the validation history and the best-so-far trackers),
+SIGTERM preemption with a mid-epoch ``latest`` and a resume that skips the
+batches already trained, the epoch loop over ``DataPipeline.epoch_batches``
+with host prefetch, validation each epoch, the ``latest``, best-loss,
+best-gap, periodic and final checkpoints, the plots, the test phase over
+both best checkpoints (``test_metrics.json`` in the reference's schema)
+and the retrieval phase on independent embeddings
+(``retrieval_metrics.json``). The data pipeline, the sources, the
 tokenizers and the artifact helpers are the port's copies of the JAX
-package's (``speech_transcript_embeddings_torch.data``). Each micro-step's loss stays
-on the device with a CUDA event after it; both are read once the epoch
-has synced, so the step log adds no host sync to the batch loop.
-
-Not ported yet (ROADMAP.md, Queue 1 item 3): resume from ``latest``,
-SIGTERM preemption, the best-loss / best-gap / periodic checkpoints, plots,
-the test and retrieval phase, and the profiler. Fields whose honouring
-would change the result raise; the artifacts not written are logged once.
+package's (``speech_transcript_embeddings_torch.data``). Each micro-step's
+loss stays on the device with a CUDA event after it; both are read once
+the epoch has synced, so the step log adds no host sync to the batch loop.
+The dropout generator restarts from ``seed + 17`` in every process, as the
+JAX loop's key does.
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import math
 import os
+import threading
 import time
 from typing import Dict, Tuple
 
@@ -31,29 +36,48 @@ from speech_transcript_embeddings_torch.config import ExperimentConfig
 from speech_transcript_embeddings_torch.data import (
     DataPipeline, artifacts, make_source, prefetch, resolve_tokenizer,
 )
-from speech_transcript_embeddings_torch.inference.embed import resolve_device
-from speech_transcript_embeddings_torch.models.dual_encoder import init_model
+from speech_transcript_embeddings_torch.inference.embed import (
+    resolve_device, retrieval_metrics,
+)
+from speech_transcript_embeddings_torch.models.dual_encoder import (
+    init_model, l2_normalize,
+)
 from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training.train_step import (
-    create_train_state, eval_step, train_step,
+    _to_device, create_train_state, eval_step, train_step,
 )
 
-NOT_WRITTEN = ("latest/ and resume, best_model_loss/, best_model_gap/, "
-               "checkpoint_epoch_N/, similarity and progress plots, "
-               "test_metrics.json, retrieval_metrics.json, the profiler "
-               "trace, SIGTERM preemption")
+# set by the SIGTERM handler or request_preemption(): the batch loop saves
+# ``latest`` with mid-epoch resume metadata at the next batch boundary and
+# returns
+_PREEMPT = threading.Event()
+
+
+def request_preemption(signum=None, frame=None) -> None:
+    """Ask the running experiment to checkpoint and return at the next
+    batch boundary. ``run_experiment`` installs it as the SIGTERM handler;
+    safe to call from any thread."""
+    _PREEMPT.set()
+
+
+def preempt_agreed(local: bool) -> bool:
+    """The preemption decision of all processes: this port trains in one
+    process (``check_supported``), so it is the local flag."""
+    return local
 
 
 def check_supported(cfg: ExperimentConfig, device: torch.device) -> None:
     """Raise for the fields this loop cannot honour without changing the
     result of the run."""
-    out_dir = cfg.train.output_dir
-    if cfg.train.resume and ckpt_lib.checkpoint_exists(
-            os.path.join(out_dir, "latest")):
-        raise NotImplementedError(
-            f"{out_dir}/latest exists and train.resume is on: resume is not "
-            "ported yet (ROADMAP.md); use a fresh train.output_dir or "
-            "train.resume=false")
+    latest = os.path.join(cfg.train.output_dir, "latest")
+    if cfg.train.resume and ckpt_lib.checkpoint_exists(latest):
+        meta = ckpt_lib.load_metadata(latest)
+        if meta.get("kind") != ckpt_lib.KIND or meta.get("params_only", True):
+            raise ValueError(
+                f"{latest} cannot be resumed: kind {meta.get('kind')!r}, "
+                f"params_only {meta.get('params_only')!r} (resume needs the "
+                f"port's full training checkpoint); use a fresh "
+                "train.output_dir or train.resume=false")
     if cfg.train.init_checkpoint:
         kind = ckpt_lib.load_metadata(cfg.train.init_checkpoint).get("kind")
         if kind != ckpt_lib.KIND:
@@ -61,14 +85,9 @@ def check_supported(cfg: ExperimentConfig, device: torch.device) -> None:
                 f"train.init_checkpoint {cfg.train.init_checkpoint}: kind "
                 f"{kind!r}; this loop initialises from {ckpt_lib.KIND!r} "
                 "checkpoints only (convert others with bridge.py)")
-    for field, value in (
-            ("train.fault_inject_preempt_at",
-             cfg.train.fault_inject_preempt_at),
-            ("train.validate_gradients", cfg.train.validate_gradients),
-            ("mesh.multihost", cfg.mesh.multihost)):
-        if value:
-            raise NotImplementedError(f"{field}={value!r} is not ported yet "
-                                      "(ROADMAP.md)")
+    if cfg.mesh.multihost:
+        raise NotImplementedError("mesh.multihost=True is not ported yet "
+                                  "(ROADMAP.md)")
     n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
     data = n_dev if cfg.mesh.num_data == -1 else cfg.mesh.num_data
     if data * cfg.mesh.num_model > 1:
@@ -108,12 +127,38 @@ def evaluate(cfg, model, frontend, pipeline, source, split: str, epoch: int,
         metrics["pairwise_loss"] = pairwise_sum / max(count, 1.0)
     logger.info(f"{split} metrics:")
     logger.info(f"  Loss: {metrics['loss']:.4f}")
+    logger.info(f"  Average similarity: {metrics['avg_similarity']:.4f}")
+    logger.info(f"  Median similarity: {metrics['median_similarity']:.4f}")
     logger.info(f"  Clean sample similarity: {metrics['clean_similarity']:.4f}")
     logger.info(f"  Corrupted sample similarity: "
                 f"{metrics['corrupt_similarity']:.4f}")
     logger.info(f"  Similarity gap (clean - corrupt): "
                 f"{metrics['similarity_gap']:.4f}")
     return metrics, s_pos, s_neg, len(sums)
+
+
+@torch.no_grad()
+def compute_retrieval(model, frontend, pipeline, source, split: str = "test"
+                      ) -> Tuple[Dict[str, float], int]:
+    """Speech→text Recall@K over a split on *independent* embeddings
+    (encoder → pooling → projection, no cross-modal fusion: fused
+    embeddings depend on the pair and cannot rank). → (metrics, batches)."""
+    device = next(model.parameters()).device
+    text_embs, audio_embs = [], []
+    for batch in pipeline.epoch_batches(source, split, epoch=0):
+        features, amask = frontend(_to_device(batch["waveform"], device),
+                                   _to_device(batch["num_samples"], device))
+        te, _ = model.encode_text(_to_device(batch["input_ids_pos"], device),
+                                  _to_device(batch["attention_mask_pos"],
+                                             device))
+        ae, _ = model.encode_audio(features, amask)
+        keep = batch["example_mask"].astype(bool)
+        text_embs.append(l2_normalize(te).cpu().numpy()[keep])
+        audio_embs.append(l2_normalize(ae).cpu().numpy()[keep])
+    if not text_embs:
+        return {}, 0
+    return retrieval_metrics(np.concatenate(audio_embs),
+                             np.concatenate(text_embs)), len(text_embs)
 
 
 def _sync(device: torch.device) -> None:
@@ -138,8 +183,33 @@ def _seconds(start, end) -> float:
     return start.elapsed_time(end) / 1e3
 
 
+def _gib(fn, device: torch.device):
+    """``fn(device)`` in GiB on a card (memory_allocated or
+    max_memory_allocated), None on the CPU."""
+    return fn(device) / 2 ** 30 if device.type == "cuda" else None
+
+
 def run_experiment(cfg: ExperimentConfig, device="cuda", source=None,
                    tokenizer=None, logger=None) -> dict:
+    """Train, validate, checkpoint, test. Owns the SIGTERM handler for the
+    run (``train.preempt_checkpoint``; main thread only) and always puts
+    the previous one back, so a library caller's process stays killable."""
+    import signal
+    installed, prev = False, None
+    if cfg.train.preempt_checkpoint and \
+            threading.current_thread() is threading.main_thread():
+        prev = signal.signal(signal.SIGTERM, request_preemption)
+        installed = True
+    _PREEMPT.clear()
+    try:
+        return _run_experiment(cfg, device, source, tokenizer, logger)
+    finally:
+        if installed:
+            signal.signal(signal.SIGTERM, prev)
+
+
+def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
+                    logger) -> dict:
     device = resolve_device(device)
     check_supported(cfg, device)
     out_dir = cfg.train.output_dir
@@ -158,7 +228,6 @@ def run_experiment(cfg: ExperimentConfig, device="cuda", source=None,
     logger.info(f"PyTorch port on {device}"
                 + (f" ({torch.cuda.get_device_name(device)})"
                    if device.type == "cuda" else ""))
-    logger.info(f"Not written by the port yet: {NOT_WRITTEN}")
     logger.info("Training with parameters:")
     logger.info(f"  Freeze mode: {cfg.freeze.mode}")
     logger.info(f"  Text layers to unfreeze: {cfg.freeze.text_layers_to_unfreeze}")
@@ -166,9 +235,14 @@ def run_experiment(cfg: ExperimentConfig, device="cuda", source=None,
     logger.info(f"  Loss kind: {cfg.loss.kind}")
     logger.info(f"  Batch size: {cfg.data.batch_size}")
     logger.info(f"  Gradient accumulation steps: {cfg.train.accumulation_steps}")
+    logger.info(f"  Effective batch size: "
+                f"{cfg.data.batch_size * cfg.train.accumulation_steps}")
     logger.info(f"  Learning rate: {cfg.optimizer.learning_rate}")
+    logger.info(f"  Temperature: {cfg.loss.temperature}")
+    logger.info(f"  Projection dimension: {cfg.model.heads.projection_dim}")
     logger.info(f"  Training samples: {source.num_examples('train')}")
     logger.info(f"  Validation samples: {source.num_examples('validation')}")
+    logger.info(f"  Test samples: {source.num_examples('test')}")
 
     model = init_model(cfg.model, torch.Generator(device).manual_seed(
         cfg.train.seed), device, train=True)
@@ -198,41 +272,141 @@ def run_experiment(cfg: ExperimentConfig, device="cuda", source=None,
                 f"{steps_per_epoch} optimizer steps/epoch, {total_steps} "
                 f"total, {cfg.optimizer.warmup_steps} warmup")
     frontend = make_frontend(cfg.model.frontend).to(device)
-    generator = torch.Generator(device).manual_seed(cfg.train.seed + 17)
-
     results: dict = {"n_params": n_param, "n_trainable": n_train,
-                     "step_log": [], "epochs": []}
-    for epoch in range(1, cfg.train.num_epochs + 1):
+                     "step_log": [], "epochs": [], "saves": []}
+
+    def save(name, epoch, metrics, params_only=False):
+        t0 = time.perf_counter()
+        size = ckpt_lib.save_checkpoint(os.path.join(out_dir, name), state,
+                                        cfg, epoch, metrics, params_only)
+        secs = time.perf_counter() - t0
+        results["saves"].append({"name": name, "bytes": size,
+                                 "seconds": secs})
+        logger.info(f"Saved {name}: {size / 2 ** 20:.1f} MiB in "
+                    f"{secs:.1f} s")
+
+    start_epoch, skip = 1, 0
+    best_val_loss, best_gap = float("inf"), 0.0
+    clean_history, corrupt_history = [], []
+    latest_path = os.path.join(out_dir, "latest")
+    if cfg.train.resume and ckpt_lib.checkpoint_exists(latest_path):
+        meta = ckpt_lib.load_metadata(latest_path)
+        ckpt_lib.restore_checkpoint(latest_path, state)
+        start_epoch = meta["epoch"] + 1
+        hist = meta["metrics"].get("val_history")
+        if hist:
+            clean_history = [float(v) for v in hist["clean"]]
+            corrupt_history = [float(v) for v in hist["corrupt"]]
+        mid = meta["metrics"].get("mid_epoch")
+        if mid:
+            # the epoch stream is deterministic per (seed, epoch): skipping
+            # the batches already trained is exact
+            skip = int(mid["batches_done"])
+            logger.info(f"Resumed mid-epoch from {latest_path}: epoch "
+                        f"{start_epoch}, skipping the first {skip} "
+                        f"already-trained batches")
+        else:
+            logger.info(f"Resumed from {latest_path} at epoch {meta['epoch']}")
+        # the best-so-far trackers: else the first epoch after the resume
+        # would overwrite the best checkpoints with a worse model
+        for kind in ("best_model_loss", "best_model_gap"):
+            p = os.path.join(out_dir, kind)
+            if ckpt_lib.checkpoint_exists(p):
+                vm = ckpt_lib.load_metadata(p).get("metrics", {}).get(
+                    "val_metrics", {})
+                if kind == "best_model_loss" and "loss" in vm:
+                    best_val_loss = float(vm["loss"])
+                elif kind == "best_model_gap" and "similarity_gap" in vm:
+                    best_gap = float(vm["similarity_gap"])
+
+    if cfg.train.validate_gradients and cfg.train.accumulation_steps > 1:
+        from speech_transcript_embeddings_torch.training import diagnostics
+        probe = []
+        for b in pipeline.epoch_batches(source, "train", epoch=0):
+            if probe and b["waveform"].shape != probe[0]["waveform"].shape:
+                continue
+            probe.append(b)
+            if len(probe) >= min(cfg.train.accumulation_steps, 4):
+                break
+        results["gradient_check"] = diagnostics.validate_gradient_accumulation(
+            cfg, state, frontend, probe)
+
+    generator = torch.Generator(device).manual_seed(cfg.train.seed + 17)
+    for epoch in range(start_epoch, cfg.train.num_epochs + 1):
         try:
             t0 = time.perf_counter()
             start = _mark(device)
             acc = None
             n_batches = 0
             steps = []      # (samples, loss on the device, mark) per step
-            for batch in prefetch(pipeline.epoch_batches(source, "train",
-                                                         epoch),
-                                  cfg.train.prefetch_batches):
+            offset = skip if epoch == start_epoch else 0
+            batches = prefetch(itertools.islice(
+                pipeline.epoch_batches(source, "train", epoch), offset, None),
+                cfg.train.prefetch_batches)
+            prof = None     # the profiler while it traces
+            for batch in batches:
+                if (cfg.train.profile_dir and epoch == start_epoch
+                        and n_batches == 2):
+                    prof = _start_profiler(device)
                 metrics = train_step(cfg, state, frontend, batch, generator)
                 acc = metrics if acc is None else {
                     k: acc[k] + v for k, v in metrics.items()}
-                n_batches += 1
                 steps.append((int(batch["waveform"].shape[1]),
                               metrics["loss"], _mark(device)))
+                inject_at = cfg.train.fault_inject_preempt_at
+                if (inject_at is not None and epoch == start_epoch
+                        and n_batches + 1 >= inject_at):
+                    request_preemption()
+                if cfg.train.preempt_checkpoint and \
+                        preempt_agreed(_PREEMPT.is_set()):
+                    if prof is not None:
+                        _stop_profiler(prof, cfg, logger)
+                    batches.close()      # stop the prefetch thread
+                    done = offset + n_batches + 1
+                    _sync(device)
+                    results["step_log"] += _step_log(epoch, offset, start,
+                                                     steps)
+                    logger.info(f"Preemption requested: checkpointing "
+                                f"{latest_path} mid-epoch (epoch {epoch}, "
+                                f"{done} batches done) and exiting")
+                    save("latest", epoch - 1,
+                         {"mid_epoch": {"epoch": epoch, "batches_done": done},
+                          "val_history": {"clean": clean_history,
+                                          "corrupt": corrupt_history}})
+                    results["preempted"] = {"epoch": epoch,
+                                            "batches_done": done}
+                    return results
+                n_batches += 1
+                if prof is not None and \
+                        n_batches >= 2 + cfg.train.profile_steps:
+                    _stop_profiler(prof, cfg, logger)
+                    prof = None
                 if n_batches % cfg.train.log_every_batches == 0:
                     # the only host sync in the batch loop
                     a = {k: float(v) / n_batches for k, v in acc.items()}
+                    mem = _gib(torch.cuda.memory_allocated, device)
                     logger.info(
                         f"Epoch {epoch} batch {n_batches}: "
                         f"loss={a['loss']:.4f} clean={a['clean_hr']:.3f} "
                         f"corrupt={a['corrupt_hr']:.3f} "
                         f"gap={a['clean_hr'] - a['corrupt_hr']:.3f} "
-                        f"grad_norm={a['grad_norm']:.3g}")
+                        f"grad_norm={a['grad_norm']:.3g}"
+                        + (f" mem={mem:.2f}GiB" if mem is not None else ""))
+                    # the JAX loop's thresholds: > 100 → lower the LR,
+                    # < 1e-8 → gradients may be vanishing
+                    if a["grad_norm"] > 100.0:
+                        logger.warning(
+                            f"Mean gradient norm {a['grad_norm']:.1f} > 100 "
+                            "— consider lowering the learning rate")
+                    elif 0.0 < a["grad_norm"] < 1e-8:
+                        logger.warning(
+                            f"Mean gradient norm {a['grad_norm']:.3g} < 1e-8 "
+                            "— gradients may be vanishing")
+            if prof is not None:
+                _stop_profiler(prof, cfg, logger)
             _sync(device)
             train_time = time.perf_counter() - t0
-            results["step_log"] += [
-                {"epoch": epoch, "batch": i + 1, "samples": samples,
-                 "loss": float(loss), "t": _seconds(start, mark)}
-                for i, (samples, loss, mark) in enumerate(steps)]
+            results["step_log"] += _step_log(epoch, offset, start, steps)
             # from the end of the first micro-step to the end of the last
             warm_clips_per_sec = (
                 (n_batches - 1) * cfg.data.batch_size
@@ -247,35 +421,152 @@ def run_experiment(cfg: ExperimentConfig, device="cuda", source=None,
                 "corrupt_similarity": a["corrupt_hr"],
                 "similarity_gap": a["clean_hr"] - a["corrupt_hr"],
                 "grad_norm": a["grad_norm"]}
+            if offset + n_batches != batches_per_epoch:
+                logger.info(f"Epoch {epoch}: {offset + n_batches} train "
+                            f"batches (scheduler assumed {batches_per_epoch})")
             clips_per_sec = n_batches * cfg.data.batch_size / max(
                 train_time, 1e-9)
-            val_metrics, _, _, n_eval = evaluate(
+            peak = _gib(torch.cuda.max_memory_allocated, device)
+            val_metrics, val_s_pos, val_s_neg, n_eval = evaluate(
                 cfg, state.model, frontend, pipeline, source, "validation",
                 epoch, logger)
+            clean_history.append(val_metrics["clean_similarity"])
+            corrupt_history.append(val_metrics["corrupt_similarity"])
             logger.info(
                 f"Epoch {epoch}/{cfg.train.num_epochs} - "
                 f"Train Loss: {train_metrics['loss']:.4f}, "
                 f"Val Loss: {val_metrics['loss']:.4f}, "
+                f"Clean Sim: {val_metrics['clean_similarity']:.4f}, "
+                f"Corrupt Sim: {val_metrics['corrupt_similarity']:.4f}, "
                 f"Gap: {val_metrics['similarity_gap']:.4f}, "
                 f"Time: {time.perf_counter() - t0:.2f}s "
                 f"({clips_per_sec:.2f} clips/s train, "
-                f"{warm_clips_per_sec:.2f} after the first step)")
+                f"{warm_clips_per_sec:.2f} after the first step)"
+                + (f", peak_mem={peak:.2f}GiB" if peak is not None else ""))
             results["epochs"].append({
                 "epoch": epoch, "train_batches": n_batches,
-                "eval_batches": n_eval, "train_seconds": train_time,
-                "clips_per_sec": clips_per_sec,
+                "skipped_batches": offset, "eval_batches": n_eval,
+                "train_seconds": train_time, "clips_per_sec": clips_per_sec,
                 "warm_clips_per_sec": warm_clips_per_sec,
-                "train_metrics": train_metrics, "val_metrics": val_metrics})
+                "peak_mem_gib": peak, "train_metrics": train_metrics,
+                "val_metrics": val_metrics})
+
+            meta = {"train_metrics": train_metrics, "val_metrics": val_metrics,
+                    "clips_per_sec": clips_per_sec,
+                    # best-loss selection uses the training objective
+                    "best_loss_objective": cfg.loss.kind,
+                    # restored on resume, so the progress plot covers the
+                    # whole run
+                    "val_history": {"clean": clean_history,
+                                    "corrupt": corrupt_history}}
+            save("latest", epoch, meta)
+            # best and final checkpoints are params-only: they are only
+            # evaluated or served (resume uses latest)
+            if val_metrics["loss"] < best_val_loss:
+                best_val_loss = val_metrics["loss"]
+                logger.info(f"New best validation loss: {best_val_loss:.4f}")
+                save("best_model_loss", epoch, meta, params_only=True)
+            if val_metrics["similarity_gap"] > best_gap:
+                best_gap = val_metrics["similarity_gap"]
+                logger.info(f"New best similarity gap: {best_gap:.4f}")
+                save("best_model_gap", epoch, meta, params_only=True)
+            if cfg.train.save_every and epoch % cfg.train.save_every == 0:
+                save(f"checkpoint_epoch_{epoch}", epoch, meta)
+            if epoch % cfg.train.plot_every == 0 or \
+                    epoch == cfg.train.num_epochs:
+                artifacts.plot_similarity_distributions(
+                    val_s_pos, val_s_neg,
+                    os.path.join(out_dir, f"similarity_dist_epoch_{epoch}.png"))
+                artifacts.plot_progress(
+                    clean_history, corrupt_history,
+                    os.path.join(out_dir, "clean_corrupt_progress.png"))
         except Exception as e:                 # reference-parity resilience
             if not cfg.train.continue_on_epoch_error:
                 raise
             logger.error(f"Error in epoch {epoch}: {e}")
 
     logger.info("Training completed!")
-    ckpt_lib.save_checkpoint(os.path.join(out_dir, "final_model"),
-                             state.model, cfg,
-                             info={"epoch": cfg.train.num_epochs,
-                                   "updates": state.optimizer.count})
-    results.update(cfg=cfg, state=state, frontend=frontend,
-                   pipeline=pipeline, source=source)
+    save("final_model", cfg.train.num_epochs, {}, params_only=True)
+    # the test phase needs parameters only; each best checkpoint is loaded
+    # into its own eval model (serving storage: the same values the training
+    # form computes with), one at a time
+    state.optimizer.drop_moments()
+    test_results: Dict[str, dict] = {}
+    test_batches = 0
+    for kind, name in (("best_model_loss", "Best Loss"),
+                       ("best_model_gap", "Best Gap")):
+        path = os.path.join(out_dir, kind)
+        if not ckpt_lib.checkpoint_exists(path):
+            logger.warning(f"{name} model not found")
+            continue
+        _, eval_model = ckpt_lib.load_checkpoint(path, device)
+        logger.info(f"Loaded {name.lower()} model from epoch "
+                    f"{ckpt_lib.load_metadata(path)['epoch']}")
+        metrics, s_pos, s_neg, n = evaluate(
+            cfg, eval_model, frontend, pipeline, source, "test",
+            cfg.train.num_epochs + 1, logger)
+        del eval_model
+        test_batches += n
+        test_results[f"{kind.replace('best_model', 'best')}_model"] = metrics
+        artifacts.plot_similarity_distributions(
+            s_pos, s_neg, os.path.join(
+                out_dir, f"test_similarity_dist_{kind.replace('model_', '')}.png"))
+    artifacts.write_test_metrics(out_dir, test_results)
+    results["test_batches"] = test_batches
+
+    # speech→text retrieval on the test split with the best-gap (else
+    # best-loss) model, in a file of its own so test_metrics.json keeps the
+    # reference's schema
+    best_kind = ("best_model_gap" if ckpt_lib.checkpoint_exists(
+        os.path.join(out_dir, "best_model_gap")) else "best_model_loss")
+    if ckpt_lib.checkpoint_exists(os.path.join(out_dir, best_kind)):
+        _, eval_model = ckpt_lib.load_checkpoint(
+            os.path.join(out_dir, best_kind), device)
+        retrieval, results["retrieval_batches"] = compute_retrieval(
+            eval_model, frontend, pipeline, source, "test")
+        del eval_model
+        with open(os.path.join(out_dir, "retrieval_metrics.json"), "w") as f:
+            json.dump({best_kind: retrieval}, f, indent=2)
+        logger.info(f"Retrieval ({best_kind}): " + ", ".join(
+            f"{k}={v:.4f}" for k, v in retrieval.items()))
+        results["retrieval"] = retrieval
+    logger.info("Evaluation completed!")
+    for model_name, metrics in test_results.items():
+        logger.info(f"Test results for {model_name}:")
+        logger.info(f"  Loss: {metrics['loss']:.4f}")
+        logger.info(f"  Clean Sample Similarity: "
+                    f"{metrics['clean_similarity']:.4f}")
+        logger.info(f"  Corrupted Sample Similarity: "
+                    f"{metrics['corrupt_similarity']:.4f}")
+        logger.info(f"  Similarity Gap: {metrics['similarity_gap']:.4f}")
+    results.update(test_metrics=test_results, cfg=cfg, state=state,
+                   frontend=frontend, pipeline=pipeline, source=source,
+                   val_history={"clean": clean_history,
+                                "corrupt": corrupt_history})
     return results
+
+
+def _step_log(epoch, offset, start, steps):
+    """The epoch's step-log entries (after a device sync)."""
+    return [{"epoch": epoch, "batch": offset + i + 1, "samples": samples,
+             "loss": float(loss), "t": _seconds(start, mark)}
+            for i, (samples, loss, mark) in enumerate(steps)]
+
+
+def _start_profiler(device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, cfg, logger) -> None:
+    """Stop the trace and write it as a Chrome trace into
+    ``train.profile_dir``."""
+    prof.stop()
+    os.makedirs(cfg.train.profile_dir, exist_ok=True)
+    path = os.path.join(cfg.train.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    logger.info(f"Profiler trace written to {path}")

@@ -9,7 +9,8 @@ Port of ``speech_transcript_embeddings_tpu/training/losses.py``:
   process: the cross-device gather (``axis_name``) raises until data
   parallel training is ported.
 
-Word alignment is not ported, so ``alignment_scores`` is always None here.
+With the word-alignment head on, each sample's term is weighted by
+``1 − sigmoid(mean token score)·alignment_weight``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ def to_human_readable(cosine: torch.Tensor, temperature: float = 0.1,
     raise ValueError(f"Unknown scale {scale!r}")
 
 
-def _alignment_factor(alignment_scores, alignment_weight: float):
+def alignment_factor(alignment_scores, alignment_weight: float):
     if alignment_scores is None:
         return None
     return 1.0 - torch.sigmoid(alignment_scores.mean(dim=1)) * alignment_weight
@@ -50,7 +51,7 @@ def pairwise_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
     s_neg = torch.sum(audio * text_neg, dim=-1)
     logits = torch.stack([s_pos, s_neg], dim=1) / cfg.temperature
     per_sample = -F.log_softmax(logits, dim=1)[:, 0]
-    factor = _alignment_factor(alignment_scores, cfg.alignment_weight)
+    factor = alignment_factor(alignment_scores, cfg.alignment_weight)
     if factor is not None:
         per_sample = per_sample * factor
     loss = per_sample.mean()
@@ -73,7 +74,7 @@ def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
     logits = (audio @ cand.T) / cfg.temperature               # [B, 2B]
     idx = torch.arange(b, device=audio.device)
     per_sample = -F.log_softmax(logits, dim=-1)[idx, idx]
-    factor = _alignment_factor(alignment_scores, cfg.alignment_weight)
+    factor = alignment_factor(alignment_scores, cfg.alignment_weight)
     if factor is not None:
         per_sample = per_sample * factor
     loss = per_sample.mean()
@@ -98,7 +99,7 @@ def global_per_sample_masked(cfg: LossConfig, text_pos, text_neg, audio,
                          torch.finfo(logits.dtype).min)
     idx = torch.arange(b, device=audio.device)
     per = -F.log_softmax(logits, dim=-1)[idx, idx]
-    factor = _alignment_factor(alignment_scores, cfg.alignment_weight)
+    factor = alignment_factor(alignment_scores, cfg.alignment_weight)
     if factor is not None:
         per = per * factor
     if cfg.corrupt_gamma > 0:

@@ -17,6 +17,9 @@ Port of ``speech_transcript_embeddings_tpu/training/optimizer.py``:
   decay on every trainable parameter. With accumulation over k micro-steps
   the mean gradient (Welford, as optax) is clipped and applied on every
   k-th call only, and the schedule counts updates, not micro-steps.
+  ``state_dict``/``load_state_dict`` carry the whole state, as optax's
+  ``MultiSteps`` state does, so a run preempted inside an accumulation
+  window resumes with the same partial mean.
 """
 
 from __future__ import annotations
@@ -124,6 +127,41 @@ class AdamW:
                      for k, p in params.items()} if self.k > 1 else None)
         self.mini_step = 0
         self.count = 0            # updates applied (the schedule's step)
+
+    def state_dict(self) -> dict:
+        """μ (in ``mu_dtype``), ν, the accumulator, ``mini_step`` and
+        ``count``: everything a resumed run needs to continue exactly, a
+        partial accumulation window included. The accumulator is all zeros
+        at a window boundary (``mini_step`` 0), and then saved as None."""
+        return {"mu": dict(self.mu), "nu": dict(self.nu),
+                "acc": dict(self.acc) if self.mini_step else None,
+                "mini_step": self.mini_step, "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if set(state["mu"]) != set(self.params) or \
+                set(state["nu"]) != set(self.params):
+            raise ValueError("optimizer state is for other parameters")
+        if state["acc"] is not None and self.acc is None or \
+                not 0 <= state["mini_step"] < self.k:
+            raise ValueError(f"optimizer state at micro-step "
+                             f"{state['mini_step']} does not fit "
+                             f"accumulation over {self.k} micro-steps")
+        for k, p in self.params.items():
+            self.mu[k] = state["mu"][k].to(p.device, self.mu_dtype)
+            self.nu[k] = state["nu"][k].to(p.device, torch.float32)
+            if self.acc is not None:
+                if state["acc"] is None:
+                    self.acc[k].zero_()
+                else:
+                    self.acc[k].copy_(state["acc"][k])
+        self.mini_step = int(state["mini_step"])
+        self.count = int(state["count"])
+
+    def drop_moments(self) -> None:
+        """Free μ, ν and the accumulator once training is over (the test
+        phase needs the parameters only); ``count`` stays."""
+        self.mu = self.nu = self.acc = None
 
     def lr(self, name: str) -> np.float32:
         """The learning rate of the next update of ``name``."""

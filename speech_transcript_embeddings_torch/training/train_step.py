@@ -110,10 +110,13 @@ def train_step(cfg: ExperimentConfig, state: TrainState, frontend,
             "grad_norm": grad_norm}
 
 
-def _per_sample_eval_loss(cfg, aux: losses.LossAux):
-    """Per-sample 2-way CE (+ corrupt penalty): CE over [s_pos, s_neg]/τ ==
-    softplus((s_neg − s_pos)/τ)."""
+def _per_sample_eval_loss(cfg, aux: losses.LossAux, alignment_scores):
+    """Per-sample 2-way CE (+ alignment factor + corrupt penalty): CE over
+    [s_pos, s_neg]/τ == softplus((s_neg − s_pos)/τ)."""
     per = F.softplus((aux.s_neg - aux.s_pos) / cfg.temperature)
+    factor = losses.alignment_factor(alignment_scores, cfg.alignment_weight)
+    if factor is not None:
+        per = per * factor
     if cfg.corrupt_gamma > 0:
         per = per + cfg.corrupt_gamma * F.relu(aux.s_neg)
     return per
@@ -131,11 +134,12 @@ def eval_step(cfg: ExperimentConfig, model: DualEncoderModel, frontend,
     out = model.forward_pos_neg(mb, None)
     aux = losses.LossAux(s_pos=torch.sum(out.audio * out.text_pos, -1),
                          s_neg=torch.sum(out.audio * out.text_neg, -1))
-    per_pair = _per_sample_eval_loss(cfg.loss, aux)
+    per_pair = _per_sample_eval_loss(cfg.loss, aux, out.alignment_scores)
     m = _to_device(batch["example_mask"], device)
     if cfg.loss.kind == "global":
         per_obj = losses.global_per_sample_masked(
-            cfg.loss, out.text_pos, out.text_neg, out.audio, m)
+            cfg.loss, out.text_pos, out.text_neg, out.audio, m,
+            out.alignment_scores)
     else:
         per_obj = per_pair
     return {"loss_sum": torch.sum(per_obj * m),

@@ -92,7 +92,7 @@ def test_embed_pair_matches_jax(pair):
 def test_checkpoint_round_trip(pair, tmp_path):
     _, port = pair
     path = str(tmp_path / "ckpt")
-    checkpoints.save_checkpoint(path, port.model, port.cfg, info={"seed": 0})
+    checkpoints.save_params_checkpoint(path, port.model, port.cfg, info={"seed": 0})
     meta = checkpoints.load_metadata(path)
     assert meta["kind"] == "torch_params" and meta["format_version"] == 1
     assert meta["info"] == {"seed": 0}

@@ -98,8 +98,14 @@ def test_heads_match_jax():
 
 
 def test_fusion_heads_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DualEncoderModel(port_cfg(tiny_model_config()))
+    """The fusion heads build (tests/test_torch_heads.py holds them against
+    JAX); a fusion width their heads cannot split is refused."""
+    mc = port_cfg(tiny_model_config())
+    assert hasattr(DualEncoderModel(mc), "word_level_alignment")
+    bad = dataclasses.replace(mc, heads=dataclasses.replace(
+        mc.heads, cross_modal_heads=5))
+    with pytest.raises(ValueError, match="not divisible by 5 heads"):
+        DualEncoderModel(bad)
 
 
 def test_seeded_init_is_deterministic_and_finite():

@@ -111,7 +111,7 @@ def servers(tmp_path_factory):
         dataset="synthetic", max_text_length=12, audio_buckets=(16000,),
         max_audio_samples=16000))
     path = str(tmp_path_factory.mktemp("port_copies") / "model")
-    checkpoints.save_checkpoint(
+    checkpoints.save_params_checkpoint(
         path, init_model(mc, torch.Generator().manual_seed(0)), cfg)
     service = tserve.EmbeddingService(path, device="cpu")
     urls, stops = [], []

@@ -38,7 +38,7 @@ def ckpt(tmp_path_factory):
         dataset="synthetic", max_text_length=12,
         audio_buckets=(16000, 48000), max_audio_samples=48000))
     path = str(tmp_path_factory.mktemp("torch_serve") / "model")
-    checkpoints.save_checkpoint(
+    checkpoints.save_params_checkpoint(
         path, init_model(mc, torch.Generator().manual_seed(0)), cfg)
     return path
 

@@ -1,6 +1,6 @@
 """The port's training CLI: its preset table equals the JAX CLI's, a tiny
-run on the CPU writes a ``final_model`` that the port's serving path loads,
-and the fields the loop cannot honour raise."""
+run on the CPU (fusion heads on) writes a ``final_model`` that the port's
+serving path loads, and the fields the loop cannot honour raise."""
 
 import dataclasses
 import json
@@ -45,8 +45,7 @@ def test_tiny_run_on_cpu_writes_a_servable_final_model(tmp_path):
     out = tmp_path / "run"
     res = torch_train.main([
         "preset=tiny", "device=cpu", "train.num_epochs=1",
-        f"train.output_dir={out}", "data.num_synthetic_samples=32"]
-        + HEADS_OFF)
+        f"train.output_dir={out}", "data.num_synthetic_samples=32"])
     assert res["n_trainable"] == res["n_params"] > 0   # 2 layers, 5 unfrozen
     # one step-log entry per micro-step at the default log interval
     losses = [s["loss"] for s in res["step_log"]]
@@ -88,31 +87,36 @@ def test_cuda_without_a_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        torch_train.main(["preset=tiny", f"train.output_dir={tmp_path}"]
-                         + HEADS_OFF)
+        torch_train.main(["preset=tiny", f"train.output_dir={tmp_path}"])
 
 
 @pytest.mark.parametrize("override,match", [
-    ("train.validate_gradients=true", "validate_gradients"),
-    ("train.fault_inject_preempt_at=3", "fault_inject_preempt_at"),
     ("mesh.multihost=true", "multihost"),
     ("mesh.num_data=2", "data and tensor parallel"),
+    ("mesh.num_model=2", "data and tensor parallel"),
 ])
 def test_fields_the_loop_cannot_honour_raise(tmp_path, override, match):
     cfg = torch_train.build_config(
-        ["preset=tiny", f"train.output_dir={tmp_path}", override] + HEADS_OFF)
+        ["preset=tiny", f"train.output_dir={tmp_path}", override])
     with pytest.raises(NotImplementedError, match=match):
         loop.check_supported(cfg, torch.device("cpu"))
 
 
-def test_resume_from_an_existing_latest_raises(tmp_path):
+@pytest.mark.parametrize("meta", [{}, {"kind": "torch_params",
+                                       "params_only": True}],
+                         ids=["foreign", "params_only"])
+def test_resume_from_an_existing_latest_raises(tmp_path, meta):
+    """Resume needs the port's full training checkpoint: a ``latest``
+    without optimizer state, or of another kind, is refused before the
+    model is built (tests/test_torch_loop.py resumes real ones)."""
     os.makedirs(tmp_path / "latest")
-    (tmp_path / "latest" / "metadata.json").write_text("{}")
+    (tmp_path / "latest" / "metadata.json").write_text(json.dumps(meta))
     cfg = torch_train.build_config(
-        ["preset=tiny", f"train.output_dir={tmp_path}", "train.resume=true"]
-        + HEADS_OFF)
-    with pytest.raises(NotImplementedError, match="resume"):
+        ["preset=tiny", f"train.output_dir={tmp_path}", "train.resume=true"])
+    with pytest.raises(ValueError, match="resume"):
         loop.check_supported(cfg, torch.device("cpu"))
+    loop.check_supported(cfg.with_overrides({"train": {"resume": False}}),
+                         torch.device("cpu"))
 
 
 def test_a_trained_bf16_model_loads_into_serving_storage(tmp_path):
@@ -127,13 +131,13 @@ def test_a_trained_bf16_model_loads_into_serving_storage(tmp_path):
     cfg = torch_train.build_config(
         ["preset=tiny", "model.dtype=bfloat16", "freeze.mode=partial",
          "freeze.audio_layers_to_unfreeze=1",
-         "freeze.text_layers_to_unfreeze=1"] + HEADS_OFF)
+         "freeze.text_layers_to_unfreeze=1"])
     model = init_model(cfg.model, torch.Generator().manual_seed(0),
                        train=True)
     state = create_train_state(model, cfg, total_steps=1)
     assert {p.dtype for p in state.trainable.values()} == {torch.float32}
     assert {p.dtype for p in state.frozen.values()} == {torch.bfloat16}
-    checkpoints.save_checkpoint(str(tmp_path / "m"), model, cfg)
+    checkpoints.save_params_checkpoint(str(tmp_path / "m"), model, cfg)
     _, served = checkpoints.load_checkpoint(str(tmp_path / "m"))
     trained = model.state_dict()
     dense = [(n, m) for n, m in served.named_modules()

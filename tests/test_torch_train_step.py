@@ -3,7 +3,9 @@
 config, fp32 compute, a 2-block audio stack with flash attention (JAX's
 Pallas kernels in interpret mode, the port's twins), partial freeze (1 of 2
 blocks trainable), both loss kinds, accumulation 1 and 2, warmup 0 and 1,
-and the frozen split and Adam's first moment in fp32 and in bf16.
+and the frozen split and Adam's first moment in fp32 and in bf16; the
+retrieval heads, and the fused model (cross-modal fusion and word
+alignment, whose token scores weight each sample's loss).
 
 Tolerances: loss, grad norm and the human-readable similarities rtol 1e-4
 (fp32 through both encoders, as the port's encoder tests);
@@ -18,11 +20,12 @@ bit-identical. Two kinds of leaf get a gradient of exactly zero in exact
 arithmetic, because a softmax ignores a shift shared by all its inputs: the
 attention key biases and the attentive-pooling score bias. Both frameworks
 see rounding noise there, which Adam scales up to as much as ±lr, so those
-leaves are held to 2.5·lr. The eval sums: atol 1e-4, the tolerance the
+leaves are held to 2.5·lr (the fusion heads' key biases and the
+word-alignment attention's too). The eval sums: atol 1e-4, the tolerance the
 port's Embedder test holds embeddings to.
 """
 
-ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias")
+ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias", ".attn_k.bias")
 
 import dataclasses
 
@@ -56,10 +59,11 @@ from torch_port_cfg import port_cfg
 LR = 1e-3
 
 
-def _cfg(kind="global", acc=1, warmup=0, low=False) -> ExperimentConfig:
-    mc = tiny_model_config(use_word_alignment=False)
+def _cfg(kind="global", acc=1, warmup=0, low=False, fused=False
+         ) -> ExperimentConfig:
+    mc = tiny_model_config(use_word_alignment=fused)
     mc = dataclasses.replace(
-        mc, heads=dataclasses.replace(mc.heads, use_cross_modal=False),
+        mc, heads=dataclasses.replace(mc.heads, use_cross_modal=fused),
         audio=dataclasses.replace(mc.audio, use_flash_attention=True))
     return ExperimentConfig(
         model=mc,
@@ -92,6 +96,12 @@ def params():
     return jax.tree.map(np.asarray, init_params(model, jax.random.PRNGKey(0)))
 
 
+@pytest.fixture(scope="module")
+def fused_params():
+    model = JaxModel(_cfg(fused=True).model)
+    return jax.tree.map(np.asarray, init_params(model, jax.random.PRNGKey(0)))
+
+
 def _port_state(cfg, params, total_steps):
     cfg = port_cfg(cfg)
     model = DualEncoderModel(cfg.model, param_dtype=torch.float32)
@@ -106,12 +116,18 @@ CASES = {
     "pairwise_acc1_warm0": dict(kind="pairwise", acc=1, warmup=0),
     "global_acc2_warm1_bf16_frozen_mu": dict(kind="global", acc=2, warmup=1,
                                              low=True),
+    "fused_pairwise_acc1_warm0": dict(kind="pairwise", acc=1, warmup=0,
+                                      fused=True),
+    "fused_global_acc2_warm1": dict(kind="global", acc=2, warmup=1,
+                                    fused=True),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_train_step_matches_jax(params, case):
+def test_train_step_matches_jax(request, case):
     cfg = _cfg(**CASES[case])
+    params = request.getfixturevalue(
+        "fused_params" if CASES[case].get("fused") else "params")
     acc = cfg.train.accumulation_steps
     batches = _host_batches(cfg, 2 * acc)              # two updates
     total_steps = 4
@@ -174,7 +190,15 @@ def test_lr_is_zero_at_the_first_update_with_warmup(params):
 def test_eval_step_matches_jax_with_masked_tail(params):
     """kind='global': its loss_sum is the masked in-batch objective, and
     pairwise_loss_sum the pairwise CE that kind='pairwise' reports."""
-    cfg = _cfg(kind="global")
+    _check_eval_step(_cfg(kind="global"), params)
+
+
+def test_fused_eval_step_matches_jax_with_masked_tail(fused_params):
+    """The fused model: both sums weighted by the alignment factor."""
+    _check_eval_step(_cfg(kind="global", fused=True), fused_params)
+
+
+def _check_eval_step(cfg, params):
     batch = dict(_host_batches(cfg, 1)[0])
     batch["example_mask"] = np.array([1, 1, 1, 0], np.float32)
     labels = jopt.param_labels(params, cfg.freeze, cfg.model)
