@@ -23,8 +23,15 @@ serves the trained ``final_model`` (phase 8). Trains the reference-parity
 ``preset=flagship`` (fusion and word-alignment heads) through a preemption
 and a mid-epoch resume, with the test and retrieval phases, scores its best
 checkpoint with the inference CLI, and holds a small fp32 fused model's
-optimizer step on the GPU against the CPU (phase 9). Phases 4, 5, 7, 8 and
-9 check that their path went through its kernels, counted from zero. Each phase
+optimizer step on the GPU against the CPU (phase 9). Int8 serving (W8A8,
+``torch._int_mm``): the small model's int8 Dense products GPU against CPU
+(phase 4), the full-width model served in int8 beside bf16 (phase 5).
+Conversion (phase 10): a reference-format checkpoint at the flagship
+geometry, written from a seed, goes through ``convert_checkpoint
+--from-torch``; the result is scored by ``infer batch`` in bf16 and int8
+and trained two micro-steps from ``train.init_checkpoint``. Phases 4, 5,
+7, 8, 9 and 10 check that their path went through its kernels (and, in
+int8, its int8 products), counted from zero. Each phase
 prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
@@ -606,7 +613,164 @@ def phase4():
            f"kernels vs CPU twins max err {worst:.2e} (tol 1e-4) over texts "
            f"and buckets 41200/164080/491760; flash launches {launches}",
         errs=errs, launches=launches)
-    return launches
+    int8 = _phase4_int8(cfg, cpu_model, texts, batches, gpu)
+    return launches, int8
+
+
+def _int8_dense_counts(model):
+    """Quantized Dense modules on the text path and on the audio path."""
+    from speech_transcript_embeddings_torch.ops.quant import Int8Dense
+    names = [n for n, m in model.named_modules() if isinstance(m, Int8Dense)]
+    return {path: sum(n.startswith(tuple(f"{path}_{p}" for p in (
+        "encoder.", "projection.", "pooling."))) for n in names)
+        for path in ("text", "audio")}, len(names)
+
+
+def _phase4_int8(cfg, cpu_model, texts, batches, gpu_fp):
+    """Int8 serving (W8A8) of the small model on the GPU (cuBLASLt int8
+    products) and on the CPU (the plain int32 product). Each quantized
+    Dense of the GPU run is fed its own captured input on both devices: the
+    int8 activations and the int32 products must be bit-equal, the outputs
+    within 1e-5 of their largest element. End to end, unit-norm
+    embeddings: the text within 1e-3 of the CPU's; the audio, whose
+    log-mel features already differ between the kernels and the twins (up
+    to 2e-4), at cosine ≥ 0.999 to the CPU's, because int8 rounding turns
+    a small change of an activation into a whole step where x/s_x crosses
+    a half (on the CPU, a 1e-6 relative change of this model's input moves
+    its int8 audio embeddings by 3.5-4.1e-3); and both at cosine ≥ 0.995
+    to the GPU's full precision (tests/test_quant.py's bound). The product
+    count must be the quantized Dense modules of each path × its forwards.
+    Then torch._int_mm's shape rules on the card, and whether a transposed
+    int8 weight (a view) gives the same product, at what time."""
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch.inference.embed import Embedder
+    from speech_transcript_embeddings_torch.ops import quant
+    cpu = Embedder(cfg, copy.deepcopy(cpu_model)).quantize_int8()
+    gpu = Embedder(cfg, copy.deepcopy(cpu_model).cuda()).quantize_int8()
+    per_path, n_q = _int8_dense_counts(gpu.model)
+    captured = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: captured.append(
+            (name, args[0].detach(), out.detach())))
+        for name, m in gpu.model.named_modules()
+        if isinstance(m, quant.Int8Dense)]
+    quant.int8_matmul.launches = 0      # the int8 path's count starts here
+    try:
+        out = {"text": [gpu.embed_texts(texts)], "audio": [
+            gpu.embed_audios(clips) for clips in batches]}
+    finally:
+        for h in hooks:
+            h.remove()
+    products = quant.int8_matmul.launches
+    want = per_path["text"] + per_path["audio"] * len(batches)
+    if products != want:
+        raise AssertionError(f"{products} int8 products for {per_path} "
+                             f"quantized Dense × 1 text and {len(batches)} "
+                             f"audio forwards (want {want})")
+    ref = {"text": [cpu.embed_texts(texts)],
+           "audio": [cpu.embed_audios(clips) for clips in batches]}
+    fp = {"text": [gpu_fp.embed_texts(texts)],
+          "audio": [gpu_fp.embed_audios(clips) for clips in batches]}
+    cpu_mods = dict(cpu.model.named_modules())
+    dense_err, shapes = 0.0, set()
+    for name, x, y in captured:
+        xq, _ = quant.quantize_activations(x)
+        xq_cpu, _ = quant.quantize_activations(x.cpu())
+        mod = cpu_mods[name]
+        n, k = mod.weight_q.shape
+        acc = quant.int8_matmul(xq.reshape(-1, k),
+                                gpu.model.get_submodule(name).weight_q.t())
+        if not torch.equal(xq.cpu(), xq_cpu) or not torch.equal(
+                acc.cpu(), quant.int8_matmul(xq_cpu.reshape(-1, k),
+                                             mod.weight_q.t())):
+            raise AssertionError(f"{name}: int8 activations or int32 "
+                                 f"products differ between GPU and CPU")
+        y_cpu = mod(x.cpu())
+        err = ((y.float().cpu() - y_cpu.float()).abs().max()
+               / y_cpu.float().abs().max().clamp_min(1e-30)).item()
+        dense_err = max(dense_err, err)
+        shapes.add((xq.reshape(-1, k).shape[0], k, n))
+    if dense_err > 1e-5:
+        raise AssertionError(f"an int8 Dense's output differs GPU vs CPU by "
+                             f"{dense_err:.2e} of its largest element")
+    e2e = {"text": 0.0, "audio": 0.0}
+    cos_cpu, cos_fp = 1.0, 1.0
+    for path in ("text", "audio"):
+        for g, c, f in zip(out[path], ref[path], fp[path]):
+            norms = np.linalg.norm(g, axis=1)
+            if not np.isfinite(g).all() or np.abs(norms - 1).max() > 1e-3:
+                raise AssertionError(f"int8 {path} embeddings: norms {norms}")
+            e2e[path] = max(e2e[path], float(np.abs(g - c).max()))
+            cos_fp = min(cos_fp, float(np.sum(g * f, axis=1).min()))
+            if path == "audio":
+                cos_cpu = min(cos_cpu, float(np.sum(g * c, axis=1).min()))
+    if e2e["text"] > 1e-3 or cos_cpu < 0.999 or cos_fp < 0.995:
+        raise AssertionError(f"int8 GPU vs CPU: text max err "
+                             f"{e2e['text']:.2e} (tol 1e-3), audio cosine "
+                             f"{cos_cpu:.5f} (≥ 0.999); vs full precision "
+                             f"cosine {cos_fp:.5f} (≥ 0.995)")
+    rules = _int_mm_rules()
+    log(4, f"int8 (W8A8): {n_q} quantized Dense ({per_path}); GPU vs CPU "
+           f"unit-norm embeddings: text max err {e2e['text']:.2e} (tol "
+           f"1e-3), audio max err {e2e['audio']:.2e}, cosine min "
+           f"{cos_cpu:.6f} (≥ 0.999); each int8 "
+           f"Dense on its captured input: int8 activations and int32 "
+           f"products bit-equal, output max err {dense_err:.1e} of its "
+           f"largest (tol 1e-5), {len(captured)} calls at (M, K, N) "
+           f"{sorted(shapes)[:6]}...; int8 vs full precision cosine min "
+           f"{cos_fp:.5f} (bound 0.995); {products} torch._int_mm calls = "
+           f"quantized Dense × forwards; torch._int_mm on the card: {rules}",
+        e2e_err=e2e, audio_cos_vs_cpu=cos_cpu, dense_err=dense_err,
+        cos_vs_fp=cos_fp,
+        products=products, quantized=per_path, shapes=sorted(shapes),
+        int_mm_rules=rules)
+    return products
+
+
+def _int_mm_rules():
+    """What torch._int_mm takes on the card: rows ≤ 16, inner and output
+    dims that are not multiples of 8 (each refused or not), and whether a
+    transposed weight view gives the same product as the contiguous
+    weight, with both times (device time, torch.profiler) and the kernels
+    the view launches."""
+    import torch
+    g = torch.Generator().manual_seed(9)
+    x = torch.randint(-127, 128, (4096, 1024), generator=g,
+                      dtype=torch.int8).cuda()
+    w_nk = torch.randint(-127, 128, (4096, 1024), generator=g,
+                         dtype=torch.int8).cuda()
+    w_kn = w_nk.t().contiguous()
+    out = {}
+    for what, (m, k, n) in (("rows 16", (16, 1024, 1024)),
+                            ("rows 17", (17, 1024, 1024)),
+                            ("rows 148", (148, 1024, 1024)),
+                            ("inner 36", (64, 36, 64)),
+                            ("output 36", (64, 64, 36))):
+        try:
+            torch._int_mm(x[:m, :k].contiguous(), w_kn[:k, :n].contiguous())
+            torch.cuda.synchronize()
+            out[what] = "taken"
+        except RuntimeError as e:
+            out[what] = f"refused ({str(e).splitlines()[0][:90]})"
+    plain = (x[:256].cpu().to(torch.int32) @ w_kn.cpu().to(torch.int32)
+             ).cuda()
+    view = torch._int_mm(x[:256], w_nk.t())
+    contiguous = torch._int_mm(x[:256], w_kn)
+    out["contiguous weight exact"] = bool(torch.equal(contiguous, plain))
+    out["transposed view equals it"] = bool(torch.equal(view, contiguous))
+    from torch.profiler import ProfilerActivity, profile
+    for what, w in (("contiguous", w_kn), ("transposed view", w_nk.t())):
+        torch._int_mm(x, w)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch._int_mm(x, w)
+            torch.cuda.synchronize()
+        out[f"{what}: device kernels (ms, name, calls)"] = [
+            (round(ms, 4), k[:60], c) for ms, k, c in _device_rows(prof)]
+        # CUDA events over back-to-back calls (4096 × 1024 × 4096)
+        out[f"{what}: ms a call"] = cuda_ms(lambda: torch._int_mm(x, w))
+    return out
 
 
 def _request(url, payload=None):
@@ -631,6 +795,18 @@ def _check_embs(body, n, what):
 
 
 def phase5():
+    """Full-width serving of the seed-0 retrieval model over HTTP, in bf16
+    and then in int8 (W8A8) from the same checkpoint."""
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build_dir)
+    try:
+        return _phase5(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _phase5(tmp):
     from http.server import ThreadingHTTPServer
 
     import numpy as np
@@ -654,14 +830,12 @@ def phase5():
     model = init_model(cfg.model, torch.Generator(device="cuda").manual_seed(0),
                        device="cuda")
     n_params = sum(p.numel() for p in model.parameters())
-    build_dir = os.path.join(ROOT, REPO, "_build")
-    os.makedirs(build_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        path = os.path.join(tmp, "retrieval_seed0")
-        checkpoints.save_params_checkpoint(path, model, cfg, info={"seed": 0})
-        del model
-        torch.cuda.empty_cache()
-        service = EmbeddingService(path, device="cuda")
+    path = os.path.join(tmp, "retrieval_seed0")
+    checkpoints.save_params_checkpoint(path, model, cfg, info={"seed": 0})
+    del model
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    service = EmbeddingService(path, device="cuda")
     setup_s = time.perf_counter() - t0
     # serving stores every Dense and Embed weight in its compute dtype (bf16
     # in the encoders), so the cast at each call is a no-op
@@ -702,7 +876,7 @@ def phase5():
         for tag in ("cold", "warm"):
             status, body, lat[f"embed_text_4_{tag}"] = _request(
                 url + "/embed_text", {"texts": texts})
-            _check_embs(body, 4, "/embed_text")
+            text_embs = _check_embs(body, 4, "/embed_text")
         for tag in ("cold", "warm"):
             status, body, lat[f"embed_audio_3_{tag}"] = _request(
                 url + "/embed_audio",
@@ -720,7 +894,7 @@ def phase5():
         for tag in ("cold", "warm"):
             status, body, lat[f"embed_audio_16x4.7s_{tag}"] = _request(
                 url + "/embed_audio", {"audios": [c.tolist() for c in batch16]})
-            _check_embs(body, 16, "/embed_audio x16")
+            audio_embs = _check_embs(body, 16, "/embed_audio x16")
             audio_forwards += 1
         status, body, lat["similarity"] = _request(
             url + "/similarity", {"text": texts[0], "audio": short.tolist()})
@@ -762,12 +936,135 @@ def phase5():
            f"batched cos {cos:.6f}; launches {launches}, log-mel by frames "
            f"{by_frames}", clips_per_s=clips_per_s, cos=cos,
         launches=launches, by_frames={str(k): v for k, v in by_frames.items()})
-    _breakdown(service.embedder, {"16 clips of 4.7 s": batch16,
-                                  "3 clips, 30 s bucket": [short, mid, long_]},
-               lat)
+    bf16 = _breakdown(service.embedder, {
+        "16 clips of 4.7 s": (batch16, lat["embed_audio_16x4.7s_warm"]),
+        "3 clips, 30 s bucket": ([short, mid, long_],
+                                 lat["embed_audio_3_warm"])}, "bf16")
     log(5, f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
            f" GiB", peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    bf16.update(_serving_memory(service.embedder, texts, batch16, mem0))
+    _release(service)
+    del service, httpd, dense
+    int8 = _phase5_int8(path, texts, batch16, text_embs, audio_embs, bf16,
+                        layers)
+    return launches, int8
+
+
+def _serving_memory(embedder, texts, clips, before):
+    """Device memory of a serving Embedder: what it holds at rest (weights
+    and tables: allocated now less ``before``, taken just before it was
+    built), and the most that one text and one audio request allocate on
+    top; their sum is a serving process's peak."""
+    import torch
+    torch.cuda.synchronize()
+    now = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    embedder.embed_texts(texts)
+    embedder.embed_audios(clips)
+    torch.cuda.synchronize()
+    out = {"resident_gib": (now - before) / 2**30,
+           "request_gib": (torch.cuda.max_memory_allocated() - now) / 2**30}
+    out["peak_gib"] = out["resident_gib"] + out["request_gib"]
+    return out
+
+
+def _phase5_int8(path, texts, batch16, text_bf16, audio_bf16, bf16, layers):
+    """The same checkpoint served with ``EmbeddingService(int8=True)`` over
+    HTTP: ``/embed_text`` 4 × 128 tokens and ``/embed_audio`` 16 × 4.7 s,
+    cold and warm. Checks unit-norm 768-d rows and the launches (the
+    log-mel kernels and K3 once a forward and block, as in bf16: int8
+    replaces only the Dense products; the int8 products = quantized Dense
+    of each path × its forwards); reports, beside bf16, the device busy
+    time, the Embedder alone, the HTTP request, the device memory and each
+    clip's int8-vs-bf16 cosine (random weights: a report, not a gate)."""
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.ops import quant
+    from speech_transcript_embeddings_torch.serve import (
+        EmbeddingService, make_handler,
+    )
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    service = EmbeddingService(path, device="cuda", int8=True)
+    setup_s = time.perf_counter() - t0
+    per_path, n_q = _int8_dense_counts(service.embedder.model)
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(service))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_port}"
+    lat = {}
+    # every count starts at zero just before the int8 path runs
+    fk.log_mel.launches = 0
+    fk.normalize_and_stack.launches = 0
+    fa.LAUNCHES.clear()
+    quant.int8_matmul.launches = 0
+    try:
+        for tag in ("cold", "warm"):
+            _, body, lat[f"embed_text_4_{tag}"] = _request(
+                url + "/embed_text", {"texts": texts})
+            text_embs = _check_embs(body, 4, "int8 /embed_text")
+            _, body, lat[f"embed_audio_16x4.7s_{tag}"] = _request(
+                url + "/embed_audio", {"audios": [c.tolist() for c in batch16]})
+            audio_embs = _check_embs(body, 16, "int8 /embed_audio x16")
+        torch.cuda.synchronize()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    launches = {"log_mel": fk.log_mel.launches,
+                "log_mel_normalize": fk.normalize_and_stack.launches,
+                "flash_rel_fwd_mma": fa.LAUNCHES["flash_rel_fwd_mma"],
+                "flash_rel_fwd": fa.LAUNCHES["flash_rel_fwd"],
+                "int8_products": quant.int8_matmul.launches}
+    want = {"log_mel": 2, "log_mel_normalize": 2, "flash_rel_fwd_mma":
+            2 * layers, "flash_rel_fwd": 0,
+            "int8_products": 2 * (per_path["text"] + per_path["audio"])}
+    if launches != want:
+        raise AssertionError(f"int8 serving launched {launches}, want {want}")
+    cos_audio = np.sum(audio_embs * audio_bf16, axis=1)
+    cos_text = np.sum(text_embs * text_bf16, axis=1)
+    res = _breakdown(service.embedder, {"16 clips of 4.7 s": (
+        batch16, lat["embed_audio_16x4.7s_warm"])}, "int8")
+    res.update(_serving_memory(service.embedder, texts, batch16, before))
+    for k, v in lat.items():
+        log(5, f"int8 {k}: {v:.1f} ms", request=f"int8 {k}", ms=v)
+    log(5, f"int8 serving (W8A8, {n_q} quantized Dense: {per_path}; set-up "
+           f"{setup_s:.1f} s): 16 × 4.7 s warm HTTP "
+           f"{lat['embed_audio_16x4.7s_warm']:.1f} ms (bf16 "
+           f"{bf16['16 clips of 4.7 s']['http_ms']:.1f}), Embedder alone "
+           f"{res['16 clips of 4.7 s']['direct_ms']:.1f} ms (bf16 "
+           f"{bf16['16 clips of 4.7 s']['direct_ms']:.1f}), device busy "
+           f"{res['16 clips of 4.7 s']['device_busy_ms']:.1f} ms (bf16 "
+           f"{bf16['16 clips of 4.7 s']['device_busy_ms']:.1f}); weights "
+           f"held {res['resident_gib']:.3f} GiB (bf16 "
+           f"{bf16['resident_gib']:.3f}), a request's own "
+           f"{res['request_gib']:.3f} GiB (bf16 {bf16['request_gib']:.3f}), "
+           f"serving peak {res['peak_gib']:.3f} GiB (bf16 "
+           f"{bf16['peak_gib']:.3f}); int8 vs bf16 cosine per clip "
+           f"min {cos_audio.min():.4f} mean {cos_audio.mean():.4f}, per text "
+           f"min {cos_text.min():.4f} (random weights: reported, not gated); "
+           f"launches {launches}",
+        launches=launches, lat=lat, int8=res, bf16=bf16,
+        cos_audio=cos_audio.tolist(), cos_text=cos_text.tolist(),
+        quantized=per_path, setup_s=setup_s)
+    _release(service)
     return launches
+
+
+def _release(service):
+    """Take a served model off the card: the service's batcher threads
+    live on (they keep the service), so the phases after this one would
+    otherwise count its weights in their peak memory."""
+    import gc
+
+    import torch
+    service.embedder.model = None
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _device_rows(prof):
@@ -785,16 +1082,16 @@ def _device_rows(prof):
     return sorted(rows, reverse=True)
 
 
-def _breakdown(embedder, batches, lat):
+def _breakdown(embedder, batches, tag):
     """Where a warm audio request's time goes: the Embedder alone (no HTTP,
     no JSON; host clock over a call that ends in a device sync) and one
-    forward's device kernels by name (torch.profiler). Runs after the
-    launch counts were read."""
+    forward's device kernels by name (torch.profiler), beside the HTTP
+    request's time (``batches``: name → (clips, HTTP ms)). Runs after the
+    launch counts were read. → name → the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    http = {"16 clips of 4.7 s": lat["embed_audio_16x4.7s_warm"],
-            "3 clips, 30 s bucket": lat["embed_audio_3_warm"]}
-    for name, clips in batches.items():
+    out = {}
+    for name, (clips, http_ms) in batches.items():
         embedder.embed_audios(clips)
         t0 = time.perf_counter()
         for _ in range(3):
@@ -808,14 +1105,17 @@ def _breakdown(embedder, batches, lat):
         rows = _device_rows(prof)
         busy = sum(r[0] for r in rows)
         top = "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, k, c in rows[:6])
-        log(5, f"{name}: HTTP request {http[name]:.1f} ms, Embedder alone "
-               f"{direct:.1f} ms, profiled forward {wall:.1f} ms with device "
-               f"kernels busy {busy:.1f} ms (idle {1 - busy / wall:.0%}); top "
-               f"device time: {top}",
-            batch=name, http_ms=http[name], direct_ms=direct,
-            profiled_wall_ms=wall, device_busy_ms=busy,
-            idle_share=1 - busy / wall,
+        out[name] = dict(http_ms=http_ms, direct_ms=direct,
+                         profiled_wall_ms=wall, device_busy_ms=busy,
+                         idle_share=1 - busy / wall, kernels=sum(
+                             c for _, _, c in rows))
+        log(5, f"{tag} {name}: HTTP request {http_ms:.1f} ms, Embedder "
+               f"alone {direct:.1f} ms, profiled forward {wall:.1f} ms with "
+               f"{out[name]['kernels']} device kernels busy {busy:.1f} ms "
+               f"(idle {1 - busy / wall:.0%}); top device time: {top}",
+            batch=f"{tag} {name}", **out[name],
             top=[{"kernel": k, "calls": c, "ms": ms} for ms, k, c in rows[:25]])
+    return out
 
 
 ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias", ".attn_k.bias")
@@ -1325,6 +1625,329 @@ def phase9():
     return launches, step, fp32
 
 
+def reference_table():
+    """The reference trainer's checkpoint at the flagship geometry, key by
+    key: (reference key, shape, the port's parameter or None, how the port
+    holds it: None as is, "squeeze" the Conv1d's last axis, or (a, b) the
+    rows a:b of ``nn.MultiheadAttention``'s in_proj), and whether it is a
+    LayerNorm weight. XLM-R 12 × 768 (vocab 250,002, 514 positions, its
+    pooler, which the port does not use), w2v-bert 24 × 1024 (160
+    features, 4096 FFN, kernel 31, 73 distances, the SpecAugment vector),
+    projection 768 with attentive pooling, fusion and word alignment."""
+    rows = []
+
+    def lin(ref, port, out, inp):
+        rows.append((f"{ref}.weight", (out, inp), port and f"{port}.weight",
+                     None, False))
+        rows.append((f"{ref}.bias", (out,), port and f"{port}.bias", None,
+                     False))
+
+    def ln(ref, port, d):
+        rows.append((f"{ref}.weight", (d,), f"{port}.weight", None, True))
+        rows.append((f"{ref}.bias", (d,), f"{port}.bias", None, False))
+
+    t, te = 768, "text_encoder"
+    for name, n in (("word_embeddings", 250002), ("position_embeddings", 514),
+                    ("token_type_embeddings", 1)):
+        rows.append((f"{te}.embeddings.{name}.weight", (n, t),
+                     f"{te}.embeddings.{name}.weight", None, False))
+    ln(f"{te}.embeddings.LayerNorm", f"{te}.embeddings.norm", t)
+    for i in range(12):
+        r, p = f"{te}.encoder.layer.{i}", f"{te}.layer_{i}"
+        for src, dst in (("query", "query"), ("key", "key"),
+                         ("value", "value")):
+            lin(f"{r}.attention.self.{src}", f"{p}.attention.{dst}", t, t)
+        lin(f"{r}.attention.output.dense", f"{p}.attention.out", t, t)
+        ln(f"{r}.attention.output.LayerNorm", f"{p}.attention.norm", t)
+        lin(f"{r}.intermediate.dense", f"{p}.intermediate", 3072, t)
+        lin(f"{r}.output.dense", f"{p}.output", t, 3072)
+        ln(f"{r}.output.LayerNorm", f"{p}.norm", t)
+    lin(f"{te}.pooler.dense", None, t, t)
+    a, ae = 1024, "audio_encoder"
+    ln(f"{ae}.feature_projection.layer_norm", f"{ae}.feature_norm", 160)
+    lin(f"{ae}.feature_projection.projection", f"{ae}.feature_projection",
+        a, 160)
+    rows.append((f"{ae}.masked_spec_embed", (a,), f"{ae}.masked_spec_embed",
+                 None, False))
+    for i in range(24):
+        r, p = f"{ae}.encoder.layers.{i}", f"{ae}.layer_{i}"
+        for k in ("ffn1", "ffn2"):
+            ln(f"{r}.{k}_layer_norm", f"{p}.{k}_norm", a)
+            lin(f"{r}.{k}.intermediate_dense", f"{p}.{k}.intermediate",
+                4096, a)
+            lin(f"{r}.{k}.output_dense", f"{p}.{k}.output", a, 4096)
+        ln(f"{r}.self_attn_layer_norm", f"{p}.attention_norm", a)
+        for src, dst in (("q", "query"), ("k", "key"), ("v", "value"),
+                         ("out", "out")):
+            lin(f"{r}.self_attn.linear_{src}", f"{p}.attention.{dst}", a, a)
+        rows.append((f"{r}.self_attn.distance_embedding.weight", (73, 64),
+                     f"{p}.attention.distance_embedding", None, False))
+        c = f"{r}.conv_module"
+        ln(f"{c}.layer_norm", f"{p}.conv.norm", a)
+        rows.append((f"{c}.pointwise_conv1.weight", (2 * a, a, 1),
+                     f"{p}.conv.pointwise1.weight", "squeeze", False))
+        rows.append((f"{c}.depthwise_conv.weight", (a, 1, 31),
+                     f"{p}.conv.depthwise_kernel", None, False))
+        ln(f"{c}.depthwise_layer_norm", f"{p}.conv.depthwise_norm", a)
+        rows.append((f"{c}.pointwise_conv2.weight", (a, a, 1),
+                     f"{p}.conv.pointwise2.weight", "squeeze", False))
+        ln(f"{r}.final_layer_norm", f"{p}.final_norm", a)
+    d = 768
+    for m, h in (("text", t), ("audio", a)):
+        lin(f"{m}_projection.projection.0", f"{m}_projection.dense_in",
+            2 * d, h)
+        lin(f"{m}_projection.projection.3", f"{m}_projection.dense_out",
+            d, 2 * d)
+        ln(f"{m}_projection.projection.4", f"{m}_projection.norm", d)
+        lin(f"{m}_pooling.attention.0", f"{m}_pooling.score_in", h // 2, h)
+        lin(f"{m}_pooling.attention.2", f"{m}_pooling.score_out", 1, h // 2)
+        lin(f"{m}_seq_to_projection", f"{m}_seq_to_projection", d, h)
+        lin(f"{m}_fusion.0", f"{m}_fusion", d, 2 * d)
+        ln(f"{m}_fusion.1", f"{m}_fusion_norm", d)
+    for x in ("text_to_audio_attention", "audio_to_text_attention"):
+        for src, dst in (("query", "query"), ("key", "key"),
+                         ("value", "value"), ("out_proj", "out")):
+            lin(f"{x}.{src}", f"{x}.{dst}", d, d)
+    w = "word_level_alignment"
+    lin(f"{w}.text_projection", f"{w}.text_proj", d, t)
+    lin(f"{w}.audio_projection", f"{w}.audio_proj", d, a)
+    for i, name in enumerate(("attn_q", "attn_k", "attn_v")):
+        rows.append((f"{w}.alignment_attention.in_proj_weight", (3 * d, d),
+                     f"{w}.{name}.weight", (i * d, (i + 1) * d), False))
+        rows.append((f"{w}.alignment_attention.in_proj_bias", (3 * d,),
+                     f"{w}.{name}.bias", (i * d, (i + 1) * d), False))
+    lin(f"{w}.alignment_attention.out_proj", f"{w}.attn_out", d, d)
+    lin(f"{w}.output_projection", f"{w}.output_proj", d, d)
+    ln(f"{w}.layer_norm", f"{w}.norm", d)
+    lin(f"{w}.alignment_confidence.0", f"{w}.confidence_in", d // 2, d)
+    lin(f"{w}.alignment_confidence.2", f"{w}.confidence_out", 1, d // 2)
+    return rows
+
+
+def _as_port(tensor, how):
+    if how == "squeeze":
+        return tensor[:, :, 0]
+    if how is not None:
+        return tensor[how[0]:how[1]]
+    return tensor
+
+
+def phase10():
+    """Conversion at the flagship geometry, from the reference's format:
+    a ``torch.save`` of ``{"model_state_dict", "temperature",
+    "use_cross_modal", "use_attentive_pooling", "use_word_alignment",
+    "projection_dim"}`` with the reference's key names (``reference_table``),
+    values from a numpy seed (0.02 · N(0, 1); LayerNorm weights 1 + that),
+    877M fp32 values. ``convert_checkpoint --from-torch`` ingests it in a
+    subprocess; the sniffed geometry must be the flagship's and every
+    source tensor equal to its port parameter after the table's
+    permutation. Then ``infer batch`` scores 32 synthetic clips from the
+    converted checkpoint in bf16 and with ``--int8`` (unit-norm, finite),
+    and ``preset=flagship train.init_checkpoint=`` it trains two
+    micro-steps (accumulation 2: one update): finite losses, the frozen
+    split equal to the checkpoint's, the trainable split moved, K4
+    launched. The ingested config, as JAX's, leaves flash attention and
+    the log-mel kernels off (their config defaults), so ``infer`` runs the
+    plain attention and frontend; the flagship preset runs the kernels."""
+    import re
+
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch import checkpoints as ckpt
+    from speech_transcript_embeddings_torch import infer
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.config import (
+        ExperimentConfig, flagship_model_config,
+    )
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.ops import quant
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        src, dst = os.path.join(tmp, "best_model_gap.pt"), \
+            os.path.join(tmp, "converted")
+        rows = reference_table()
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(10)
+        sd = {}
+        for key, shape, _, _, is_norm in rows:
+            if key not in sd:
+                v = rng.standard_normal(shape, dtype=np.float32) * 0.02
+                sd[key] = torch.from_numpy(v + 1.0 if is_norm else v)
+        n_src = sum(v.numel() for v in sd.values())
+        n_port = sum(int(np.prod(shape)) // (3 if isinstance(how, tuple)
+                                             else 1)
+                     for _, shape, port, how, _ in rows if port)
+        if n_port != FLAGSHIP_PARAMS:
+            raise AssertionError(f"the table maps {n_port} values, the "
+                                 f"flagship has {FLAGSHIP_PARAMS}")
+        out["draw_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.save({"model_state_dict": sd, "epoch": 7, "temperature": 0.07,
+                    "use_cross_modal": True, "use_attentive_pooling": True,
+                    "use_word_alignment": True, "projection_dim": 768}, src)
+        out["write_s"] = max(time.perf_counter() - t0, 1e-3)
+        out["src_gb"] = os.path.getsize(src) / 1e9
+
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", f"{REPO}.convert_checkpoint",
+             "--from-torch", src, "--output", dst], cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
+        out["convert_process_s"] = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"convert_checkpoint failed: {run.stderr}")
+        said = re.search(r"Saved ([\d,]+)-param checkpoint .*\(([\d.]+) GB; "
+                         r"read \+ convert ([\d.]+) s, write ([\d.]+) s\)",
+                         run.stdout)
+        n_conv = int(said.group(1).replace(",", ""))
+        out.update(dst_gb=float(said.group(2)),
+                   ingest_s=max(float(said.group(3)), 1e-3),
+                   save_s=max(float(said.group(4)), 1e-3))
+        # the sniffed geometry is the flagship's
+        got = ExperimentConfig.from_json(json.dumps(
+            ckpt.load_metadata(dst)["config"])).model
+        want = flagship_model_config()
+        geometry = lambda m: (  # noqa: E731
+            [getattr(m.text, f) for f in (
+                "vocab_size", "hidden_size", "num_layers", "num_heads",
+                "intermediate_size", "max_position_embeddings",
+                "type_vocab_size")],
+            [getattr(m.audio, f) for f in (
+                "feature_dim", "hidden_size", "num_layers", "num_heads",
+                "intermediate_size", "conv_kernel_size", "left_max_rel_pos",
+                "right_max_rel_pos", "apply_spec_augment")],
+            [m.heads.projection_dim, m.heads.projection_hidden_dim
+             or 2 * m.heads.projection_dim, m.heads.use_cross_modal,
+             m.heads.use_attentive_pooling, m.heads.use_word_alignment],
+            m.frontend.num_mel_bins * m.frontend.stride)
+        if geometry(got) != geometry(want) or n_conv != FLAGSHIP_PARAMS:
+            raise AssertionError(f"sniffed {geometry(got)} ({n_conv} params) "
+                                 f"!= flagship {geometry(want)}")
+        # every source tensor, exactly, where the table says
+        t0 = time.perf_counter()
+        stored = ckpt.load_stored_state(dst)
+        out["load_s"] = time.perf_counter() - t0
+        mapped = {port for _, _, port, _, _ in rows if port}
+        if set(stored) != mapped:
+            raise AssertionError(f"converted keys differ from the table: "
+                                 f"{sorted(set(stored) ^ mapped)[:8]}")
+        t0 = time.perf_counter()
+        for key, _, port, how, _ in rows:
+            if port and not torch.equal(stored[port], _as_port(sd[key], how)):
+                raise AssertionError(f"{port} is not {key}")
+        out["compare_s"] = time.perf_counter() - t0
+        del sd, stored
+        log(10, f"reference checkpoint at the flagship geometry: "
+                f"{len({r[0] for r in rows})} tensors, {n_src:,} values "
+                f"({FLAGSHIP_PARAMS:,} for the port, the rest the unused "
+                f"pooler), {out['src_gb']:.3f} GB drawn in "
+                f"{out['draw_s']:.1f} s and written in {out['write_s']:.1f} s "
+                f"({out['src_gb'] / out['write_s']:.2f} GB/s); "
+                f"convert_checkpoint --from-torch in "
+                f"{out['convert_process_s']:.1f} s (its own: read + convert "
+                f"{out['ingest_s']:.1f} s = "
+                f"{out['src_gb'] / out['ingest_s']:.2f} GB/s, write "
+                f"{out['dst_gb']:.3f} GB in {out['save_s']:.1f} s = "
+                f"{out['dst_gb'] / out['save_s']:.2f} GB/s); sniffed geometry "
+                f"= flagship; all {len(mapped)} port tensors equal their "
+                f"source exactly (checked in {out['compare_s']:.1f} s)",
+            **out, tensors=len(mapped))
+
+        scored = {}
+        for tag, extra in (("bf16", []), ("int8", ["--int8"])):
+            fk.log_mel.launches = 0
+            fa.LAUNCHES.clear()
+            quant.int8_matmul.launches = 0
+            t0 = time.perf_counter()
+            res = infer.main(["batch", "--checkpoint", dst, "--num-samples",
+                              "32", "--device", "cuda", "--dataset",
+                              "synthetic", "--results-dir",
+                              os.path.join(tmp, f"cv_{tag}")] + extra)
+            secs = time.perf_counter() - t0
+            counts = {"log_mel": fk.log_mel.launches,
+                      "int8_products": quant.int8_matmul.launches,
+                      **{k: v for k, v in fa.LAUNCHES.items() if v}}
+            embs = np.concatenate([res["text_embeddings"],
+                                   res["audio_embeddings"]])
+            norms = np.linalg.norm(embs, axis=1)
+            if len(res["similarities"]) != 32 or not np.isfinite(embs).all() \
+                    or np.abs(norms - 1).max() > 1e-3 or \
+                    (tag == "int8") != (counts["int8_products"] > 0):
+                raise AssertionError(f"infer {tag} on the converted "
+                                     f"checkpoint: norms {norms}, {counts}")
+            scored[tag] = res
+            out[f"infer_{tag}_s"] = secs
+            log(10, f"infer batch --checkpoint converted {' '.join(extra)}: "
+                    f"32 clips in {secs:.1f} s (load included), unit-norm "
+                    f"finite embeddings, launches {counts}",
+                tag=tag, seconds=secs, launches=counts,
+                retrieval=res["retrieval"])
+        cos = np.sum(scored["int8"]["audio_embeddings"]
+                     * scored["bf16"]["audio_embeddings"], axis=1)
+        out["int8_vs_bf16_audio_cos_mean"] = float(cos.mean())
+
+        # two micro-steps of preset=flagship from the converted checkpoint
+        argv = ["preset=flagship", "device=cuda", "train.num_epochs=1",
+                "optimizer.warmup_steps=0", "train.accumulation_steps=2",
+                "data.num_synthetic_samples=64",
+                "train.fault_inject_preempt_at=2",
+                f"train.init_checkpoint={dst}",
+                f"train.output_dir={tmp}/run"]
+        # every count starts at zero just before this path runs
+        fk.log_mel.launches = 0
+        fk.log_mel.launches_by_frames.clear()
+        fk.normalize_and_stack.launches = 0
+        fa.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        launches = {"log_mel": fk.log_mel.launches,
+                    "log_mel_normalize": fk.normalize_and_stack.launches,
+                    **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+        losses = [st["loss"] for st in res["step_log"]]
+        layers = flagship_model_config().audio.num_layers
+        want = {"log_mel": 2, "log_mel_normalize": 2,
+                "flash_rel_fwd_mma": 2 * layers,
+                "flash_rel_bwd_mma": 2 * layers,
+                "flash_rel_fwd": 0, "flash_rel_bwd": 0}
+        if res.get("preempted", {}).get("batches_done") != 2 or \
+                len(losses) != 2 or not np.isfinite(losses).all() or \
+                launches != want:
+            raise AssertionError(f"two micro-steps from the converted "
+                                 f"checkpoint: {res.get('preempted')}, "
+                                 f"losses {losses}, launches {launches}")
+        start = ckpt.load_stored_state(dst)
+        after = ckpt.load_stored_state(os.path.join(tmp, "run", "latest"))
+        frozen = [k for k, v in after.items() if v.dtype == torch.bfloat16]
+        trainable = [k for k, v in after.items() if v.dtype == torch.float32]
+        moved = [k for k in trainable if not torch.equal(after[k], start[k])]
+        changed = [k for k in frozen
+                   if not torch.equal(after[k], start[k].to(torch.bfloat16))]
+        n_train = sum(after[k].numel() for k in trainable)
+        if changed or n_train != FLAGSHIP_TRAINABLE or \
+                len(moved) < 0.9 * len(trainable):
+            raise AssertionError(f"frozen changed {changed[:5]}; "
+                                 f"{n_train} trainable values, "
+                                 f"{len(moved)}/{len(trainable)} moved")
+        del start, after
+        log(10, f"preset=flagship train.init_checkpoint=converted: 2 "
+                f"micro-steps (one update) in {out['train_s']:.1f} s (init, "
+                f"load, steps, the 'latest' save), losses "
+                f"{[round(x, 4) for x in losses]}; frozen split equal to the "
+                f"checkpoint's, {len(moved)}/{len(trainable)} trainable "
+                f"leaves moved ({n_train:,} values); launches {launches}; "
+                f"int8 vs bf16 audio cosine on the converted weights, mean "
+                f"{out['int8_vs_bf16_audio_cos_mean']:.4f}",
+            **out, losses=losses, launches=launches, moved=len(moved),
+            trainable=len(trainable))
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _profile_micro_step(phase, res):
     """One warm micro-step of a finished run's model at its longest train
     bucket, timed on the host clock and under torch.profiler (after the
@@ -1399,13 +2022,15 @@ def main():
     phase1()
     mel_err, mel_times = phase2()
     flash_err, fwd_times = phase3()
-    serve_fp32 = phase4()
-    serve = phase5()
+    serve_fp32, int8_small = phase4()
+    serve, serve_int8 = phase5()
     bwd_err, bwd_abs_err, bwd_times = phase6()
     train_fp32 = phase7()
     train, warm_clips_per_s = phase8()
     flagship, flagship_step, _ = phase9()
-    paths = {"serve": serve, "train": train, "flagship_train": flagship,
+    converted = phase10()
+    paths = {"serve": serve, "serve_int8": serve_int8, "train": train,
+             "flagship_train": flagship, "converted_train": converted,
              "serve_fp32": serve_fp32, "train_fp32": train_fp32}
     by_path = {name: {p: c.get(name, 0) for p, c in paths.items()}
                for name in train}
@@ -1461,7 +2086,8 @@ def main():
                             for (bh, t), v in times.items()}})
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
-        main_path = ("serve", "train", "flagship_train") if k["name"] not in (
+        main_path = ("serve", "serve_int8", "train", "flagship_train",
+                     "converted_train") if k["name"] not in (
             "flash_rel_fwd", "flash_rel_bwd") else ("serve_fp32",
                                                     "train_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)
@@ -1480,6 +2106,9 @@ def main():
                    "flash_bwd_times": {f"{bh}x{t}": v for (bh, t), v in
                                        bwd_times.items()},
                    "train_warm_clips_per_s": warm_clips_per_s,
+                   "int8_products": {"small_model": int8_small,
+                                     "serve_int8": serve_int8[
+                                         "int8_products"]},
                    "flagship_micro_step": flagship_step, **RECORD},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -16,8 +16,10 @@ to resume. Loading casts every tensor to the storage of the model it goes
 into: ``load_checkpoint`` to the serving storage (Dense and Embed weights in
 the compute dtype), ``load_into`` to a given model's. Every checkpoint is
 written into ``path.tmp`` and renamed over ``path``, so a crash mid-save
-never destroys the previous one. Orbax checkpoints are not read here: bring
-one across with ``bridge.py`` in a process that has JAX.
+never destroys the previous one. Foreign weights become a port checkpoint
+through ``convert_checkpoint.py`` (HF encoders, a reference ``*.pt``); the
+JAX package's orbax checkpoints are not read here: bring one across with
+``bridge.py`` in a process that has JAX.
 """
 
 from __future__ import annotations
@@ -125,7 +127,9 @@ def load_checkpoint(path: str, device="cpu"
     if meta.get("kind") != KIND:
         raise ValueError(
             f"{path}: checkpoint kind {meta.get('kind')!r} is not "
-            f"{KIND!r}; convert JAX checkpoints with "
+            f"{KIND!r}; convert HF encoders or a reference *.pt with "
+            "speech_transcript_embeddings_torch.convert_checkpoint, and a "
+            "JAX package (orbax) checkpoint with "
             "speech_transcript_embeddings_torch.bridge")
     cfg = ExperimentConfig.from_json(json.dumps(meta["config"]))
     with torch.device("meta"):
@@ -133,6 +137,13 @@ def load_checkpoint(path: str, device="cpu"
     model.load_state_dict(_state_for(path, model, device), strict=True,
                           assign=True)
     return cfg, model.to(device).eval().requires_grad_(False)
+
+
+def load_stored_state(path: str) -> dict:
+    """``model.pt`` on the host in the dtypes it was saved in, mapped from
+    the file rather than read into memory."""
+    return torch.load(os.path.join(path, "model.pt"), map_location="cpu",
+                      weights_only=True, mmap=True)
 
 
 def _state_for(path: str, model: torch.nn.Module, device) -> dict:

@@ -14,8 +14,8 @@
     set.
 
 Port of ``speech_transcript_embeddings_tpu/infer.py``. ``--device``
-defaults to ``cuda``; ``cuda`` without a card raises. ``--int8`` raises
-until int8 serving is ported.
+defaults to ``cuda``; ``cuda`` without a card raises. ``--int8`` scores
+with int8 (W8A8) Dense products (``Embedder.quantize_int8``).
 """
 
 from __future__ import annotations
@@ -82,10 +82,8 @@ def _bar_chart(values, labels, title, path):
 
 
 def _embedder(args) -> Embedder:
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 is not yet ported (ops/quant.py; ROADMAP.md, Queue 1)")
-    return Embedder.from_checkpoint(args.checkpoint, device=args.device)
+    emb = Embedder.from_checkpoint(args.checkpoint, device=args.device)
+    return emb.quantize_int8() if args.int8 else emb
 
 
 def run_pair(args) -> float:
@@ -182,6 +180,7 @@ def run_batch(args) -> dict:
         plt.close()
     print(f"\nResults saved to: {csv_path}")
     return {"similarities": sims, "projection_similarities": proj_sims,
+            "text_embeddings": text_embs, "audio_embeddings": audio_embs,
             "retrieval": rm, "csv": csv_path}
 
 
@@ -206,7 +205,7 @@ def main(argv=None):
                        help="cuda (default) or cpu; cuda without a card "
                             "raises")
         s.add_argument("--int8", action="store_true",
-                       help="int8 inference (not yet ported: raises)")
+                       help="int8 (W8A8) Dense products")
     args = parser.parse_args(argv)
     return run_pair(args) if args.mode == "pair" else run_batch(args)
 

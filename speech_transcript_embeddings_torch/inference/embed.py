@@ -8,7 +8,8 @@ forward, cross-modal fusion included when the config fuses) and
 ``similarity`` — plus a vectorised ``retrieval_metrics``. Requests keep the
 JAX package's shapes: rows padded to a power of two, and audio padded to
 one of the configured buckets after peak normalisation, so the kernels see
-only those lengths.
+only those lengths. ``quantize_int8`` switches the Dense products of the
+pair forward to int8 (W8A8, ``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from speech_transcript_embeddings_torch import checkpoints as ckpt_lib
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel, l2_normalize,
 )
-from speech_transcript_embeddings_torch.ops import make_frontend
+from speech_transcript_embeddings_torch.models.layers import Dense
+from speech_transcript_embeddings_torch.ops import make_frontend, quant
 
 
 def resolve_device(device) -> torch.device:
@@ -40,8 +42,10 @@ def resolve_device(device) -> torch.device:
 
 class Embedder:
     def __init__(self, cfg: ExperimentConfig, model: DualEncoderModel,
-                 tokenizer: Optional[Tokenizer] = None):
+                 tokenizer: Optional[Tokenizer] = None,
+                 checkpoint: Optional[str] = None):
         self.cfg = cfg
+        self.checkpoint = checkpoint   # its model.pt holds the stored weights
         self.device = next(model.parameters()).device
         self.model = model.eval().requires_grad_(False)
         self.frontend = make_frontend(cfg.model.frontend).to(self.device)
@@ -55,7 +59,46 @@ class Embedder:
     def from_checkpoint(cls, path: str, device="cuda",
                         tokenizer: Optional[Tokenizer] = None) -> "Embedder":
         cfg, model = ckpt_lib.load_checkpoint(path, resolve_device(device))
-        return cls(cfg, model, tokenizer)
+        return cls(cfg, model, tokenizer, checkpoint=path)
+
+    # ---- int8 ----------------------------------------------------------------
+
+    def quantize_int8(self) -> "Embedder":
+        """Quantize, in place, each Dense that the pair forward calls (as
+        JAX's ``dense_param_paths`` traces it: one row, ``max_text_length``
+        tokens, the smallest audio bucket), unless ``MIN_QUANT_DIM`` leaves
+        it; → self. The weights are quantized as stored (``model.pt`` of the
+        checkpoint: fp32 where training kept fp32), not from the serving
+        storage, as JAX quantizes the weights it restored. A second call
+        finds no Dense left to quantize and changes nothing."""
+        called = set()
+        dense = {name: m for name, m in self.model.named_modules()
+                 if isinstance(m, Dense)}
+        hooks = [m.register_forward_hook(
+            lambda mod, args, out, name=name: called.add(name))
+            for name, m in dense.items()]
+        length = self.cfg.data.max_text_length
+        bucket = min(self.cfg.data.audio_buckets)
+        try:
+            self._pair(np.ones((1, length), np.int32),
+                       np.ones((1, length), np.int32),
+                       np.zeros((1, bucket), np.float32),
+                       np.array([bucket], np.int32))
+        finally:
+            for h in hooks:
+                h.remove()
+        stored = (ckpt_lib.load_stored_state(self.checkpoint)
+                  if self.checkpoint else self.model.state_dict())
+        for name in sorted(called):
+            mod = dense[name]
+            q = quant.quantize_module(
+                stored[f"{name}.weight"],
+                None if mod.bias is None else stored[f"{name}.bias"],
+                mod.dtype, self.device)
+            if q is not None:
+                parent, _, child = name.rpartition(".")
+                setattr(self.model.get_submodule(parent), child, q)
+        return self
 
     # ---- batching ------------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Embedding/similarity HTTP service over the port's ``Embedder``.
 
     python -m speech_transcript_embeddings_torch.serve \
-        --checkpoint DIR --device cuda --port 8787
+        --checkpoint DIR --device cuda --port 8787 [--int8]
 
 Endpoints (JSON in/out), as ``speech_transcript_embeddings_tpu.serve``
 serves them:
@@ -168,11 +168,12 @@ class EmbeddingService:
     def __init__(self, checkpoint: str, device: str = "cuda",
                  max_batch: int = 64, window_ms: float = 3.0,
                  int8: bool = False):
-        if int8:
-            raise NotImplementedError(
-                "--int8 is not yet ported (ops/quant.py; ROADMAP.md, Queue 1)")
         from speech_transcript_embeddings_torch.inference.embed import Embedder
         self.embedder = Embedder.from_checkpoint(checkpoint, device=device)
+        if int8:
+            # dynamic W8A8 Dense products (ops/quant.py): int8 weights, half
+            # the bytes of the bf16 Dense weights
+            self.embedder.quantize_int8()
         self._started = time.monotonic()
         self._lock = threading.Lock()
         self._text_batcher = MicroBatcher(
@@ -278,7 +279,7 @@ def main(argv=None):
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--device", default="cuda")
     p.add_argument("--int8", action="store_true",
-                   help="int8 serving (not yet ported: raises)")
+                   help="int8 (W8A8) Dense products")
     args = p.parse_args(argv)
     serve(args.checkpoint, args.host, args.port, device=args.device,
           int8=args.int8)

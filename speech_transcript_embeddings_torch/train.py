@@ -87,6 +87,8 @@ def build_config(argv) -> config_lib.ExperimentConfig:
 
 
 def main(argv=None) -> dict:
+    from speech_transcript_embeddings_torch.utils.env import load_dotenv
+    load_dotenv()   # HF_TOKEN and the dataset paths, as the JAX CLI reads them
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
     for item in list(argv):

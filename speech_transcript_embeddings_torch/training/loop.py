@@ -84,7 +84,9 @@ def check_supported(cfg: ExperimentConfig, device: torch.device) -> None:
             raise NotImplementedError(
                 f"train.init_checkpoint {cfg.train.init_checkpoint}: kind "
                 f"{kind!r}; this loop initialises from {ckpt_lib.KIND!r} "
-                "checkpoints only (convert others with bridge.py)")
+                "checkpoints only: convert HF encoders or a reference *.pt "
+                "with speech_transcript_embeddings_torch.convert_checkpoint, "
+                "and a JAX package (orbax) checkpoint with bridge.py")
     if cfg.mesh.multihost:
         raise NotImplementedError("mesh.multihost=True is not ported yet "
                                   "(ROADMAP.md)")

@@ -122,7 +122,8 @@ def test_retrieval_metrics_match_jax(seed):
 
 def test_port_imports_without_jax():
     """The card's machine has no jax, and the port imports nothing of the
-    JAX package: every entry point and both kernel modules import with jax,
+    JAX package: every entry point (conversion included), both kernel
+    modules and the int8 products import with jax,
     flax, optax, orbax and speech_transcript_embeddings_tpu blocked."""
     code = ("import sys\n"
             "for m in ('jax', 'flax', 'optax', 'orbax', "
@@ -135,6 +136,11 @@ def test_port_imports_without_jax():
             "import speech_transcript_embeddings_torch.ops.frontend_kernels\n"
             "import speech_transcript_embeddings_torch.ops.flash_attention\n"
             "import speech_transcript_embeddings_torch.data.native_audio\n"
+            "import speech_transcript_embeddings_torch.infer\n"
+            "import speech_transcript_embeddings_torch.convert_checkpoint\n"
+            "import speech_transcript_embeddings_torch.models.ingest_torch\n"
+            "import speech_transcript_embeddings_torch.ops.quant\n"
+            "import speech_transcript_embeddings_torch.utils.env\n"
             "assert not any(k.split('.')[0] in ('jax', 'flax', "
             "'speech_transcript_embeddings_tpu') "
             "for k, v in sys.modules.items() if v is not None)\n")

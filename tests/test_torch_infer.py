@@ -99,14 +99,27 @@ def test_pair_prints_both_scores_and_matches_jax(ckpt, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--device", "cpu", "--int8"], NotImplementedError),
+    (["--device", "cpu", "--int8"], None),
     ([], RuntimeError),
 ], ids=["int8", "cuda_without_a_card"])
-def test_int8_and_a_missing_card_raise(ckpt, argv, error):
+def test_int8_and_a_missing_card_raise(ckpt, tmp_path, argv, error):
+    """``--int8`` scores the batch with int8 Dense products and writes the
+    CSV in its schema; ``cuda`` (the default) without a card raises."""
     if error is RuntimeError and torch.cuda.is_available():
         pytest.skip("a card is present")
-    with pytest.raises(error):
-        infer.main(["batch", "--checkpoint", ckpt[0]] + argv)
+    argv = ["batch", "--checkpoint", ckpt[0], "--num-samples", "4",
+            "--results-dir", str(tmp_path)] + argv
+    if error is not None:
+        with pytest.raises(error):
+            infer.main(argv)
+        return
+    out = infer.main(argv)
+    with open(out["csv"], newline="") as f:
+        rows = list(csv.reader(f))
+    assert rows[0] == ["sample_id", "text", "similarity",
+                       "projection_similarity"] and len(rows) == 5
+    sims = np.asarray([[float(r[2]), float(r[3])] for r in rows[1:]])
+    assert np.isfinite(sims).all() and np.abs(sims).max() <= 1.0 + 1e-6
 
 
 def test_pair_similarities_pads_rows_like_embed_audios(ckpt):

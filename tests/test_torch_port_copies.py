@@ -5,6 +5,7 @@ import of the JAX package without changing what it computes."""
 
 import dataclasses
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -154,3 +155,34 @@ def test_handlers_return_the_same_json(servers, path, payload):
         e = np.asarray(port[1]["embeddings"])
         assert e.shape == (2, 24)
         np.testing.assert_allclose(np.linalg.norm(e, axis=1), 1, atol=1e-5)
+
+
+DOTENV = """# a comment
+export HF_TOKEN='hf_abc'
+STE_CV_LOCAL_DATASET_DIR = "/data/cv pt"
+EMPTY=
+no_equals_sign
+STE_SHELL_WINS=from_file
+"""
+
+
+def test_load_dotenv_matches_jax(tmp_path, monkeypatch):
+    """The port's ``utils/env.py`` parses the same ``.env`` text to the same
+    dict and leaves the same environment, a variable set in the shell
+    winning over the file in both."""
+    from speech_transcript_embeddings_tpu.utils import env as jenv
+    from speech_transcript_embeddings_torch.utils import env as tenv
+    path = tmp_path / ".env"
+    path.write_text(DOTENV)
+    seen = []
+    for load in (jenv.load_dotenv, tenv.load_dotenv):
+        for key in ("HF_TOKEN", "STE_CV_LOCAL_DATASET_DIR", "EMPTY"):
+            monkeypatch.delenv(key, raising=False)
+        monkeypatch.setenv("STE_SHELL_WINS", "from_shell")
+        parsed = load(str(path))
+        seen.append((parsed, {k: os.environ.get(k) for k in parsed}))
+    assert seen[0] == seen[1]
+    assert seen[1][1] == {"HF_TOKEN": "hf_abc",
+                          "STE_CV_LOCAL_DATASET_DIR": "/data/cv pt",
+                          "EMPTY": "", "STE_SHELL_WINS": "from_shell"}
+    assert tenv.load_dotenv(str(tmp_path / "missing.env")) == {}

@@ -123,8 +123,34 @@ def test_bad_requests_and_stats(server):
 
 
 def test_int8_and_missing_card_raise(ckpt, monkeypatch):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--checkpoint", ckpt, "--device", "cpu", "--int8"])
+    """``--int8`` serves int8 Dense products: ``/embed_audio`` answers
+    unit-norm rows; ``cuda`` without a card raises."""
+    from speech_transcript_embeddings_torch import serve as serve_mod
+    from speech_transcript_embeddings_torch.ops.quant import Int8Dense
+    made, started = [], []
+    monkeypatch.setattr(serve_mod, "EmbeddingService", lambda *a, **k: (
+        made.append(EmbeddingService(*a, **k)) or made[-1]))
+    monkeypatch.setattr(ThreadingHTTPServer, "serve_forever",
+                        lambda self: started.append(self))
+    main(["--checkpoint", ckpt, "--device", "cpu", "--int8", "--port", "0"])
+    monkeypatch.undo()
+    httpd = started[0]
+    assert any(isinstance(m, Int8Dense)
+               for m in made[0].embedder.model.modules())
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        clips = [synth_audio_for_sentence(s).tolist()
+                 for s in ("casa tempo", "mar sol dia")]
+        status, payload = _post(f"http://127.0.0.1:{httpd.server_port}"
+                                "/embed_audio", {"audios": clips})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=10)
+    e = np.asarray(payload["embeddings"])
+    assert status == 200 and e.shape == (2, 24) and np.isfinite(e).all()
+    np.testing.assert_allclose(np.linalg.norm(e, axis=1), 1.0, rtol=1e-4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EmbeddingService(ckpt, device="cuda")

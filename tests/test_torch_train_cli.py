@@ -150,3 +150,25 @@ def test_a_trained_bf16_model_loads_into_serving_storage(tmp_path):
             assert torch.equal(p, trained[name].float()), name
         else:
             assert torch.equal(p, trained[name].to(torch.bfloat16)), name
+
+
+def test_main_loads_dotenv_before_the_run(tmp_path, monkeypatch):
+    """``train.main`` reads ``.env`` from the working directory, as the JAX
+    CLI does, before the experiment starts; a variable already set in the
+    shell wins."""
+    (tmp_path / ".env").write_text("STE_TEST_FROM_DOTENV=file\n"
+                                   "STE_TEST_SHELL_WINS=file\n")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("STE_TEST_FROM_DOTENV", raising=False)
+    monkeypatch.setenv("STE_TEST_SHELL_WINS", "shell")
+    seen = {}
+
+    def run(cfg, device):
+        seen.update({k: os.environ.get(k) for k in (
+            "STE_TEST_FROM_DOTENV", "STE_TEST_SHELL_WINS")}, device=device)
+        return {}
+
+    monkeypatch.setattr(loop, "run_experiment", run)
+    torch_train.main(["preset=tiny", "device=cpu"])
+    assert seen == {"STE_TEST_FROM_DOTENV": "file",
+                    "STE_TEST_SHELL_WINS": "shell", "device": "cpu"}

@@ -9,20 +9,25 @@ alignment, whose token scores weight each sample's loss).
 
 Tolerances: loss, grad norm and the human-readable similarities rtol 1e-4
 (fp32 through both encoders, as the port's encoder tests);
-every updated trainable leaf: 99.9% of its elements within 1e-5 and all
-within 0.25·lr (Adam's first steps move a weight by ≈lr = 1e-3 along
-sign(g), so 1e-5 is 1% of a step; it covers a bf16 first moment rounding
-one ulp apart in the two frameworks. The wider bound is for the rare
-element whose gradient is near Adam's eps = 1e-8, where g/(|g| + eps)
-turns a small relative error of g into a visible share of a step); frozen
-leaves
-bit-identical. Two kinds of leaf get a gradient of exactly zero in exact
-arithmetic, because a softmax ignores a shift shared by all its inputs: the
-attention key biases and the attentive-pooling score bias. Both frameworks
-see rounding noise there, which Adam scales up to as much as ±lr, so those
-leaves are held to 2.5·lr (the fusion heads' key biases and the
-word-alignment attention's too). The eval sums: atol 1e-4, the tolerance the
-port's Embedder test holds embeddings to.
+every updated trainable leaf: 99.9% of its resolved elements within 1e-5
+and all of them within 0.25·lr (Adam's first steps move a weight by ≈lr =
+1e-3 along sign(g), so 1e-5 is 1% of a step; it covers a bf16 first moment
+rounding one ulp apart in the two frameworks. The wider bound is for the
+rare element whose gradient is near Adam's eps = 1e-8, where g/(|g| + eps)
+turns a small relative error of g into a visible share of a step). An
+element is unresolved when, in some accumulation window, the two
+frameworks' mean gradients differ by more than 1% of JAX's: fp32 does not
+resolve its direction, and Adam's step ≈lr·g/|g| may flip. Unresolved
+elements are held to 2·lr, the rule of chip_smoke.py's optimizer-step
+check; a leaf whose elements all pass the resolved rule needs no
+gradients, so they are computed only for a leaf that does not. Frozen
+leaves bit-identical. Two kinds of leaf get a gradient of exactly zero in
+exact arithmetic, because a softmax ignores a shift shared by all its
+inputs: the attention key biases and the attentive-pooling score bias.
+Both frameworks see rounding noise there, which Adam scales up to as much
+as ±lr, so those leaves are held to 2.5·lr (the fusion heads' key biases
+and the word-alignment attention's too). The eval sums: atol 1e-4, the
+tolerance the port's Embedder test holds embeddings to.
 """
 
 ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias", ".attn_k.bias")
@@ -46,6 +51,7 @@ from speech_transcript_embeddings_tpu.models.dual_encoder import (
     DualEncoderModel as JaxModel, init_params,
 )
 from speech_transcript_embeddings_tpu.ops.frontend import LogMelFrontend
+from speech_transcript_embeddings_tpu.training import losses as jlosses
 from speech_transcript_embeddings_tpu.training import optimizer as jopt
 from speech_transcript_embeddings_tpu.training import train_step as jts
 from speech_transcript_embeddings_torch import bridge
@@ -53,6 +59,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
 from speech_transcript_embeddings_torch.ops import make_frontend
+from speech_transcript_embeddings_torch.training import losses as tlosses
 from speech_transcript_embeddings_torch.training import train_step as tts
 from torch_port_cfg import port_cfg
 
@@ -109,9 +116,12 @@ def _port_state(cfg, params, total_steps):
     return tts.create_train_state(model, cfg, total_steps)
 
 
-# every feature of the step once, in two JAX compiles (each takes ≈14 s):
+# every feature of the step once (each case is one JAX compile of ≈14 s):
 # both loss kinds (corrupt_gamma 0.35 in both), accumulation 1 and 2, warmup
-# 0 and 1, fp32 and bf16 storage of the frozen split and of Adam's mu
+# 0 and 1, fp32 and bf16 storage of the frozen split and of Adam's mu; the
+# fused model's two accumulation-2 cases each leave one element of a small
+# leaf (0.17-0.2% of it) beyond 1e-5, whose first window's gradient the two
+# frameworks do not resolve (they differ by 6-37% of it)
 CASES = {
     "pairwise_acc1_warm0": dict(kind="pairwise", acc=1, warmup=0),
     "global_acc2_warm1_bf16_frozen_mu": dict(kind="global", acc=2, warmup=1,
@@ -120,6 +130,10 @@ CASES = {
                                       fused=True),
     "fused_global_acc2_warm1": dict(kind="global", acc=2, warmup=1,
                                     fused=True),
+    "fused_global_acc2_warm0": dict(kind="global", acc=2, warmup=0,
+                                    fused=True),
+    "fused_pairwise_acc2": dict(kind="pairwise", acc=2, warmup=0,
+                                fused=True),
 }
 
 
@@ -144,7 +158,12 @@ def test_train_step_matches_jax(request, case):
     frontend = make_frontend(port_cfg(cfg.model.frontend))
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     gen = torch.Generator().manual_seed(0)
+    starts = []          # both frameworks' trainable weights at each window
     for i, batch in enumerate(batches):
+        if i % acc == 0:
+            starts.append((jax.tree.map(np.array, jstate.trainable),
+                           {k: p.detach().clone() for k, p
+                            in state.trainable.items()}))
         jstate, jm = jstep(jstate, batch, jax.random.PRNGKey(1))
         m = tts.train_step(port_cfg(cfg), state, frontend, batch, gen)
         for k in ("loss", "grad_norm", "clean_hr", "corrupt_hr"):
@@ -154,6 +173,7 @@ def test_train_step_matches_jax(request, case):
 
     want = bridge.flax_to_state_dict(jax.tree.map(np.asarray, jopt.merge_params(
         dict(jstate.trainable), dict(jstate.frozen))))
+    grads = []           # per window: (JAX, port) mean gradients, on demand
     moved = 0
     for name, p in state.trainable.items():
         assert p.dtype == torch.float32
@@ -161,8 +181,19 @@ def test_train_step_matches_jax(request, case):
         if name.endswith(ZERO_GRAD_LEAVES):
             assert diff.max() <= 2.5 * LR, name
         else:
-            assert diff.max() <= 0.25 * LR and np.mean(diff > 1e-5) <= 1e-3, (
-                name, diff.max(), np.mean(diff > 1e-5))
+            resolved = np.ones(diff.shape, bool)
+            if diff.max() > 0.25 * LR or np.mean(diff > 1e-5) > 1e-3:
+                if not grads:
+                    grads = _window_gradients(cfg, jstate.frozen, state,
+                                              starts, batches)
+                for jg, tg in grads:
+                    resolved &= np.abs(jg[name] - tg[name]) <= \
+                        1e-2 * np.abs(jg[name])
+            assert diff.max() <= 2 * LR, (name, diff.max())
+            assert diff[resolved].max(initial=0) <= 0.25 * LR and \
+                np.mean((diff > 1e-5) & resolved) <= 1e-3, (
+                    name, diff.max(), np.mean(diff > 1e-5),
+                    int((~resolved).sum()))
         moved += not torch.equal(p.detach(),
                                  torch.from_numpy(np.asarray(
                                      bridge.flax_to_state_dict(params)[name])))
@@ -175,6 +206,51 @@ def test_train_step_matches_jax(request, case):
     if low:
         assert all(m.dtype == torch.bfloat16
                    for m in state.optimizer.mu.values())
+
+
+def _window_gradients(cfg, jfrozen, state, starts, batches):
+    """Each accumulation window's mean gradient of the trainable split in
+    both frameworks, each at its own weights at the window's start: [(JAX,
+    port)] of name → numpy array."""
+    model, jfront = JaxModel(cfg.model), LogMelFrontend(cfg.model.frontend)
+
+    def loss(trainable, batch):
+        mb = jts.model_batch_from_host(jfront, batch)
+        out = model.apply({"params": jopt.merge_params(trainable, jfrozen)},
+                          mb, deterministic=False,
+                          rngs={"dropout": jax.random.PRNGKey(1)})
+        return jlosses.compute_loss(cfg.loss, out)[0]
+
+    jgrad = jax.jit(jax.grad(loss))
+    pcfg = port_cfg(cfg)
+    frontend = make_frontend(pcfg.model.frontend)
+    acc = cfg.train.accumulation_steps
+    out = []
+    for w, (jtrainable, weights) in enumerate(starts):
+        window = batches[w * acc:(w + 1) * acc]
+        jg = [{k: v.numpy() for k, v in bridge.flax_to_state_dict(
+            jax.tree.map(np.asarray, jopt.merge_params(
+                dict(jgrad(jtrainable, b)), {}))).items()} for b in window]
+        with torch.no_grad():
+            saved = {k: p.clone() for k, p in state.trainable.items()}
+            for k, p in state.trainable.items():
+                p.copy_(weights[k])
+        tg = []
+        for b in window:
+            o = state.model.forward_pos_neg(
+                tts.model_batch_from_host(frontend, b, "cpu"), None)
+            names = list(state.trainable)
+            gs = torch.autograd.grad(tlosses.compute_loss(pcfg.loss, o)[0],
+                                     list(state.trainable.values()),
+                                     allow_unused=True)
+            tg.append({k: np.zeros(state.trainable[k].shape, np.float32)
+                       if g is None else g.numpy() for k, g in zip(names, gs)})
+        with torch.no_grad():
+            for k, p in state.trainable.items():
+                p.copy_(saved[k])
+        out.append(tuple({k: sum(g[k] for g in per_batch) / acc
+                          for k in tg[0]} for per_batch in (jg, tg)))
+    return out
 
 
 def test_lr_is_zero_at_the_first_update_with_warmup(params):
