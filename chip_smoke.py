@@ -29,9 +29,14 @@ optimizer step on the GPU against the CPU (phase 9). Int8 serving (W8A8,
 Conversion (phase 10): a reference-format checkpoint at the flagship
 geometry, written from a seed, goes through ``convert_checkpoint
 --from-torch``; the result is scored by ``infer batch`` in bf16 and int8
-and trained two micro-steps from ``train.init_checkpoint``. Phases 4, 5,
-7, 8, 9 and 10 check that their path went through its kernels (and, in
-int8, its int8 products), counted from zero. Each phase
+and trained two micro-steps from ``train.init_checkpoint``. Data parallel
+(phase 11), each part in ranks that ``torchrun`` starts (this script with
+``--dp-worker``): a small fp32 model as 2 gloo ranks on the card against
+one process; ``preset=retrieval`` through the CLI under NCCL at world size
+1, preempted by an agreed flag and resumed; the same model as 2 gloo ranks
+on the card, their weights bit-identical. Phases 4, 5, 7, 8, 9, 10 and 11
+check that their path went through its kernels (and, in int8, its int8
+products), counted from zero. Each phase
 prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
@@ -40,8 +45,11 @@ result. Nothing of JAX or of the JAX package is imported.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib.util
+import itertools
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1154,128 +1162,165 @@ def phase7():
     return _one_step_gpu_vs_cpu(_train_cfg_small(), 7, "small f32 model")
 
 
-def _one_step_gpu_vs_cpu(cfg, phase, what):
-    """One optimizer step (accumulation 2, global loss) of a small fp32
-    model with flash attention under save_hot2 remat, on the GPU (kernels,
-    TF32 off) and on the CPU (twins), from the same weights and batches,
-    dropout off. Tolerances: loss and grad norm rtol 1e-4; each
-    micro-batch's gradient, per trainable leaf, within 1e-3 of the leaf's
-    largest element (the leaves whose exact gradient is 0, below 1e-4 of the
-    largest gradient of the model); each updated leaf all within 2·lr and
-    99.9% of its resolved elements within 1e-5. Adam's first step moves a
-    weight by ≈lr·g/|g|, so an element whose gradient is rounding noise may
-    flip: the zero-gradient leaves, and the elements whose mean gradient
-    over the two micro-batches differs between the devices by more than 1%
-    of itself (fp32 does not resolve its direction), are not resolved;
-    frozen leaves bit-identical."""
-    import numpy as np
-    import torch
+def _small_batches(cfg):
+    """The first two train batches of the small models' synthetic data."""
     from speech_transcript_embeddings_torch.data import (
         DataPipeline, SimpleWordTokenizer, SyntheticSource,
     )
+    pipe = DataPipeline(cfg.data, SimpleWordTokenizer(vocab_size=1000),
+                        seed=0)
+    return list(pipe.epoch_batches(SyntheticSource(cfg.data, seed=3),
+                                   "train", 1))[:2]
+
+
+def _small_model(cfg):
+    import torch
     from speech_transcript_embeddings_torch.models.dual_encoder import (
         init_model,
     )
+    return init_model(cfg.model, torch.Generator().manual_seed(7), train=True)
+
+
+def _step_run(cfg, model, batches, device):
+    """One optimizer step (accumulation 2) of a copy of ``model`` on
+    ``device`` from two host batches, dropout off: each micro-batch's
+    gradient before any update, ``train_step``'s metrics, the trainable
+    weights after, the flash launches. Under a process group (phase 11)
+    each rank takes its rows of every batch, and the gradients and the loss
+    are averaged over the ranks, as the train step averages them. Checks
+    one update and the frozen split unchanged."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
     from speech_transcript_embeddings_torch.ops import make_frontend
+    from speech_transcript_embeddings_torch.parallel import collectives
+    from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
     from speech_transcript_embeddings_torch.training import losses
     from speech_transcript_embeddings_torch.training import train_step as ts
-    pipe = DataPipeline(cfg.data, SimpleWordTokenizer(vocab_size=1000),
-                        seed=0)
-    batches = list(pipe.epoch_batches(SyntheticSource(cfg.data, seed=3),
-                                      "train", 1))[:2]
-    model = init_model(cfg.model, torch.Generator().manual_seed(7),
-                       train=True)
-    runs = {}
-    from speech_transcript_embeddings_torch.ops import flash_attention as fa
-    for device in ("cuda", "cpu"):
-        fa.LAUNCHES.clear()       # counts of this fp32 path start at zero
-        m = copy.deepcopy(model).to(device)
-        state = ts.create_train_state(m, cfg, total_steps=4)
-        frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
-        frontend = make_frontend(cfg.model.frontend).to(device)
-        grads = []          # per micro-batch, before any update
-        for b in batches:
-            out = state.model.forward_pos_neg(ts.model_batch_from_host(
-                frontend, b, device), None)
-            gs = torch.autograd.grad(
-                losses.compute_loss(cfg.loss, out)[0],
-                list(state.trainable.values()), allow_unused=True)
-            grads.append({k: (torch.zeros_like(p) if g is None else g).cpu()
-                          for (k, p), g in zip(state.trainable.items(), gs)})
-        metrics = [{k: float(v) for k, v in ts.train_step(
-            cfg, state, frontend, b, None).items()} for b in batches]
-        if state.optimizer.count != 1:
-            raise AssertionError(f"{state.optimizer.count} updates after two "
-                                 "micro-steps at accumulation 2")
-        for k, p in state.frozen.items():
-            if not torch.equal(p, frozen0[k]):
-                raise AssertionError(f"frozen {k} changed on {device}")
-        runs[device] = (metrics, {k: p.detach().cpu() for k, p in
-                                  state.trainable.items()}, grads)
-        if device == "cuda":
-            launches = dict(fa.LAUNCHES)
-    init = dict(model.named_parameters())
+    fa.LAUNCHES.clear()       # counts of this fp32 path start at zero
+    state = ts.create_train_state(copy.deepcopy(model).to(device), cfg,
+                                  total_steps=4)
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    frontend = make_frontend(cfg.model.frontend).to(device)
+    mesh = mesh_lib.make_mesh(cfg)
+    batches = [mesh_lib.shard_batch(mesh, b) for b in batches]
+    grads = []          # per micro-batch, before any update
+    for b in batches:
+        out = state.model.forward_pos_neg(ts.model_batch_from_host(
+            frontend, b, device), None)
+        gs = torch.autograd.grad(
+            losses.compute_loss(cfg.loss, out, ts.data_axis())[0],
+            list(state.trainable.values()), allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g
+              for p, g in zip(state.trainable.values(), gs)]
+        collectives.all_reduce_mean_(gs)
+        grads.append({k: g.cpu() for k, g in zip(state.trainable, gs)})
+    metrics = []
+    for b in batches:
+        m = ts.train_step(cfg, state, frontend, b, None)
+        m["loss"] = collectives.mean_over_ranks(m["loss"])
+        metrics.append({k: float(v) for k, v in m.items()})
+    if state.optimizer.count != 1:
+        raise AssertionError(f"{state.optimizer.count} updates after two "
+                             "micro-steps at accumulation 2")
+    for k, p in state.frozen.items():
+        if not torch.equal(p, frozen0[k]):
+            raise AssertionError(f"frozen {k} changed on {device}")
+    return (metrics, {k: p.detach().cpu() for k, p in
+                      state.trainable.items()}, grads, dict(fa.LAUNCHES))
+
+
+def _one_step_gpu_vs_cpu(cfg, phase, what):
+    """One optimizer step of a small fp32 model with flash attention under
+    save_hot2 remat, on the GPU (kernels, TF32 off) and on the CPU (twins),
+    from the same weights and batches (``_step_run``), held to
+    ``_hold_step``'s tolerances. → the GPU's flash launches."""
+    batches = _small_batches(cfg)
+    model = _small_model(cfg)
+    runs = {device: _step_run(cfg, model, batches, device)
+            for device in ("cuda", "cpu")}
+    launches = runs["cuda"][3]
+    if set(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
+        raise AssertionError(f"fp32 training launched {launches}: want only "
+                             "the CUDA-core kernels")
+    out = _hold_step(cfg, runs["cuda"], runs["cpu"], model, "GPU", "CPU")
+    log(phase, f"{what}, accumulation 2, {cfg.loss.kind} loss, save_hot2 "
+               f"remat: GPU (kernels) vs CPU (twins) {out['text']}; GPU "
+               f"flash launches {launches}",
+        launches=launches, **out["data"], gpu=runs["cuda"][0],
+        cpu=runs["cpu"][0])
+    return launches
+
+
+def _hold_step(cfg, got, want, model, got_name, want_name):
+    """Hold ``_step_run``'s result ``got`` to ``want``, both from
+    ``model``'s weights. Tolerances: loss and grad norm rtol 1e-4; each
+    micro-batch's gradient, per trainable leaf, within 1e-3 of the leaf's
+    largest element (the leaves whose exact gradient is 0, below 1e-4 of
+    the largest gradient of the model); each updated leaf all within 2·lr
+    and 99.9% of its resolved elements within 1e-5. Adam's first step moves
+    a weight by ≈lr·g/|g|, so an element whose gradient is rounding noise
+    may flip: the zero-gradient leaves, and the elements whose mean
+    gradient over the two micro-batches differs between the runs by more
+    than 1% of itself (fp32 does not resolve its direction), are not
+    resolved. → {"text": a summary, "data": the numbers}."""
+    import torch
+    runs = {"got": got, "want": want}
     errs = {}
     for key in ("loss", "grad_norm"):
-        for i, (g, c) in enumerate(zip(runs["cuda"][0], runs["cpu"][0])):
+        for i, (g, c) in enumerate(zip(got[0], want[0])):
             errs[f"{key}_{i}"] = abs(g[key] - c[key]) / abs(c[key])
-            if not np.isfinite(g[key]) or errs[f"{key}_{i}"] > 1e-4:
-                raise AssertionError(f"micro-step {i} {key}: GPU {g[key]} vs "
-                                     f"CPU {c[key]}")
+            if not math.isfinite(g[key]) or errs[f"{key}_{i}"] > 1e-4:
+                raise AssertionError(f"micro-step {i} {key}: {got_name} "
+                                     f"{g[key]} vs {want_name} {c[key]}")
     grad_err = 0.0
-    for g_cpu, g_gpu in zip(runs["cpu"][2], runs["cuda"][2]):
-        g_max = max(g.abs().max().item() for g in g_cpu.values())
-        for k, c in g_cpu.items():
-            d = (g_gpu[k] - c).abs().max().item()
+    for g_want, g_got in zip(want[2], got[2]):
+        g_max = max(g.abs().max().item() for g in g_want.values())
+        for k, c in g_want.items():
+            d = (g_got[k] - c).abs().max().item()
             if k.endswith(ZERO_GRAD_LEAVES):
-                if max(c.abs().max().item(), g_gpu[k].abs().max().item()) \
+                if max(c.abs().max().item(), g_got[k].abs().max().item()) \
                         > 1e-4 * g_max:
                     raise AssertionError(f"gradient of {k} is not ≈0")
                 continue
             c_max = c.abs().max().item()   # 0 for a leaf the loss never reads
             grad_err = max(grad_err, d / c_max if c_max else d)
             if d > 1e-3 * c_max:
-                raise AssertionError(f"gradient of {k}: GPU vs CPU max diff "
-                                     f"{d:.2e} of max {c_max:.2e}")
-    mean = {dev: {k: sum(g[k] for g in runs[dev][2]) / len(batches)
-                  for k in runs[dev][2][0]} for dev in runs}
+                raise AssertionError(f"gradient of {k}: {got_name} vs "
+                                     f"{want_name} max diff {d:.2e} of max "
+                                     f"{c_max:.2e}")
+    mean = {r: {k: sum(g[k] for g in runs[r][2]) / len(runs[r][2])
+                for k in runs[r][2][0]} for r in runs}
     lr = cfg.optimizer.learning_rate
+    init = dict(model.named_parameters())
     worst, moved, far, noise = 0.0, 0, 0.0, 0
-    for k, c in runs["cpu"][1].items():
-        g = runs["cuda"][1][k]
+    for k, c in want[1].items():
+        g = got[1][k]
         diff = (g - c).abs()
         worst = max(worst, diff.max().item())
-        resolved = (mean["cuda"][k] - mean["cpu"][k]).abs() <= \
-            1e-2 * mean["cpu"][k].abs()
+        resolved = (mean["got"][k] - mean["want"][k]).abs() <= \
+            1e-2 * mean["want"][k].abs()
         if k.endswith(ZERO_GRAD_LEAVES):
             resolved[...] = False   # Adam scales their gradient noise to ±lr
         noise += int((~resolved).sum())
         share = ((diff > 1e-5) & resolved).float().mean().item()
         far = max(far, share)
         if diff.max() > 2 * lr or share > 1e-3:
-            raise AssertionError(f"updated {k}: GPU vs CPU max diff "
-                                 f"{diff.max().item():.2e}, share beyond 1e-5 "
-                                 f"{share:.1e}")
+            raise AssertionError(f"updated {k}: {got_name} vs {want_name} "
+                                 f"max diff {diff.max().item():.2e}, share "
+                                 f"beyond 1e-5 {share:.1e}")
         moved += not torch.equal(g, init[k].detach())
-    if moved < 0.9 * len(runs["cpu"][1]):
-        raise AssertionError(f"only {moved} of {len(runs['cpu'][1])} "
-                             "trainable leaves moved")
-    if set(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
-        raise AssertionError(f"fp32 training launched {launches}: want only "
-                             "the CUDA-core kernels")
-    log(phase, f"{what}, accumulation 2, {cfg.loss.kind} loss, save_hot2 "
-               f"remat: "
-           f"GPU (kernels) vs CPU (twins) loss/grad-norm rel err "
-           f"{max(errs.values()):.1e} (tol 1e-4), gradient max err/max per "
-           f"leaf {grad_err:.1e} (tol 1e-3), updated params max diff "
-           f"{worst:.1e} (bound 2·lr = {2 * lr:g}), share of resolved "
-           f"elements beyond 1e-5 {far:.1e} (tol 1e-3; {noise} elements not "
-           f"resolved), {moved}/{len(runs['cpu'][1])} trainable "
-           f"leaves moved, frozen unchanged; GPU flash launches {launches}",
-        launches=launches, errs=errs, grad_err=grad_err, param_max_diff=worst,
-        share_beyond_1e5=far, unresolved=noise, moved=moved,
-        gpu=runs["cuda"][0], cpu=runs["cpu"][0])
-    return launches
+    if moved < 0.9 * len(want[1]):
+        raise AssertionError(f"only {moved} of {len(want[1])} trainable "
+                             "leaves moved")
+    text = (f"loss/grad-norm rel err {max(errs.values()):.1e} (tol 1e-4), "
+            f"gradient max err/max per leaf {grad_err:.1e} (tol 1e-3), "
+            f"updated params max diff {worst:.1e} (bound 2·lr = {2 * lr:g}), "
+            f"share of resolved elements beyond 1e-5 {far:.1e} (tol 1e-3; "
+            f"{noise} elements not resolved), {moved}/{len(want[1])} "
+            "trainable leaves moved, frozen unchanged")
+    return {"text": text, "data": dict(
+        errs=errs, grad_err=grad_err, param_max_diff=worst,
+        share_beyond_1e5=far, unresolved=noise, moved=moved)}
 
 
 FLASH_KERNELS = ("flash_rel_fwd_mma", "flash_rel_bwd_mma", "flash_rel_fwd",
@@ -1948,6 +1993,373 @@ def phase10():
     return launches
 
 
+# phase 11: the data-parallel path. The full-width runs take phase 9's
+# synthetic clips (8 micro-steps of 16 at three buckets); the preemption
+# flag is raised after micro-step 2 and agreed through any_rank after that
+# same batch
+DP_CLIPS = 160
+DP_FLAG_AT = 2
+DP_SMALL_BATCH = 8       # (a): the global batch, 4 rows a rank
+DP_STEPS = 4             # (c): micro-steps, at accumulation 2
+DP_DROPOUT_OFF = ("model.text.hidden_dropout=0.0",
+                  "model.text.attention_dropout=0.0",
+                  "model.audio.conv_dropout=0.0",
+                  "model.audio.apply_spec_augment=false",
+                  "model.heads.dropout=0.0")
+
+
+def _dp_argv(out):
+    """``preset=retrieval`` at B = 16 (global) on CV lengths, dropout and
+    SpecAugment off, no warmup."""
+    return ["preset=retrieval", "data.synthetic_length_profile=cv",
+            "train.num_epochs=1", "train.save_every=0",
+            "optimizer.warmup_steps=0",
+            f"data.num_synthetic_samples={DP_CLIPS}",
+            f"train.output_dir={out}", *DP_DROPOUT_OFF]
+
+
+def _torchrun(nproc, part, out, timeout):
+    """Run ``chip_smoke.py --dp-worker PART OUT`` as ``nproc`` ranks under
+    torchrun (a free local port), in a session of its own that is killed
+    whole if it outlives ``timeout``; raise unless every rank exited 0.
+    → the command's seconds."""
+    import signal
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.join(ROOT, "chip_smoke.py"),
+           "--dp-worker", part, out]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        text = proc.communicate(timeout=timeout)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        text = proc.communicate()[0]
+        raise RuntimeError(f"phase 11 ({part}) outlived {timeout} s:\n"
+                           f"{text[-6000:]}")
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out, f"{part}.log"), "w") as f:
+        f.write(text)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 11 ({part}): torchrun exited "
+                           f"{proc.returncode}:\n{text[-6000:]}")
+    for line in text.splitlines():
+        if line.startswith("[phase 11]"):
+            print(line, flush=True)
+    return secs
+
+
+def _dp_read(out, part, rank):
+    import torch
+    return torch.load(os.path.join(out, f"{part}_rank{rank}.pt"),
+                      weights_only=False)
+
+
+def phase11():
+    """Data-parallel training on the one card. (a) a small fp32 model
+    (phase 7's, at a global batch of 8) as 2 ranks over gloo: one
+    accumulation-2 optimizer step held against the same model in one
+    process by phase 7's rule, and the two ranks' weights bit-identical.
+    (b) ``preset=retrieval`` at full width through the port's CLI under
+    ``torchrun --nproc_per_node=1``, NCCL at world size 1: preempted by an
+    agreed flag and resumed, with phase 9's checks and launch counts, then
+    one micro-step profiled without a group and under it (device time,
+    NCCL's), the same model, batch and configuration. (c) the
+    same model as 2 ranks on the card over gloo (NCCL refuses two ranks on
+    one device): a few micro-steps, the ranks' weights bit-identical after
+    every update, the first loss against (b)'s, each rank's peak memory,
+    the gradient all-reduce's time."""
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    import torch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        a = _phase11a(tmp)
+        b = _phase11b(tmp)
+        c = _phase11c(tmp, b)
+    return a, b, c
+
+
+def _phase11a(tmp):
+    cfg = _dp_small_cfg()
+    secs = _torchrun(2, "a", tmp, 300)
+    ranks = [_dp_read(tmp, "a", r) for r in range(2)]
+    for k, p in ranks[0]["run"][1].items():
+        if not ranks[1]["run"][1][k].equal(p):
+            raise AssertionError(f"ranks disagree on {k} after the update")
+    launches = ranks[0]["run"][3]
+    if set(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
+        raise AssertionError(f"fp32 training launched {launches}")
+    model = _small_model(cfg)
+    one = _step_run(cfg, model, _small_batches(cfg), "cuda")
+    out = _hold_step(cfg, ranks[0]["run"], one, model, "2 ranks", "1 process")
+    log(11, f"(a) small f32 model, global batch {DP_SMALL_BATCH} as 2 gloo "
+            f"ranks on the card, accumulation 2, {cfg.loss.kind} loss: 2 "
+            f"ranks vs 1 process {out['text']}; both ranks' weights "
+            f"bit-identical; rank 0 flash launches {launches}; torchrun "
+            f"{secs:.1f} s",
+        launches=launches, **out["data"], dp=ranks[0]["run"][0],
+        one=one[0], seconds=secs)
+    return launches
+
+
+def _dp_small_cfg():
+    cfg = _train_cfg_small()
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=DP_SMALL_BATCH))
+
+
+def _phase11b(tmp):
+    secs = _torchrun(1, "b", tmp, 600)
+    res = _dp_read(tmp, "b", 0)
+    log(11, f"(b) preset=retrieval through the CLI under torchrun "
+            f"--nproc_per_node=1, NCCL: preempted at micro-step "
+            f"{DP_FLAG_AT} (the flag raised there and agreed through "
+            f"any_rank after that batch), resumed mid-epoch and finished: "
+            f"{res['micro']} micro-steps ({res['updates']} updates), "
+            f"losses {res['losses'][0]:.4f} → {res['losses'][-1]:.4f} "
+            f"(finite); frozen bit-identical, {res['moved']}/"
+            f"{res['trainable']} trainable leaves moved; launches "
+            f"{res['launches']}; peak {res['peak_gib']:.2f} GiB; torchrun "
+            f"{secs:.1f} s", **{k: v for k, v in res.items()
+                                if k not in ("step", "alone")}, seconds=secs)
+    st, alone, red = res["step"], res["alone"], res["all_reduce"]
+    log(11, f"(b) one warm micro-step at {st['samples']} samples, the same "
+            f"model, batch and configuration: without a group device busy "
+            f"{alone['device_busy_ms']:.1f} ms, host clock "
+            f"{alone['step_ms']:.1f} ms; under the NCCL group of 1 device "
+            f"busy {st['device_busy_ms']:.1f} ms "
+            f"({st['device_busy_ms'] - alone['device_busy_ms']:+.2f} ms), "
+            f"NCCL kernels {st['collective_ms']:.2f} ms in "
+            f"{st['collective_kernels']} launches, host clock "
+            f"{st['step_ms']:.1f} ms; the gradient all-reduce of "
+            f"{red['gb']:.3f} GB alone: {red['device_ms']:.2f} ms device "
+            f"time, {red['call_ms']:.2f} ms a call (CUDA events)",
+        **st, alone=alone, all_reduce=red)
+    return res
+
+
+def _phase11c(tmp, b):
+    secs = _torchrun(2, "c", tmp, 600)
+    ranks = [_dp_read(tmp, "c", r) for r in range(2)]
+    if ranks[0]["digests"] != ranks[1]["digests"]:
+        raise AssertionError("the ranks' trainable weights differ after an "
+                             "update")
+    losses, rank_losses = ranks[0]["losses"], ranks[0]["rank_losses"]
+    first = abs(losses[0] - b["losses"][0])
+    if rank_losses[0] == rank_losses[1]:
+        raise AssertionError(f"both ranks' first losses are {rank_losses}: "
+                             "the ranks did not hold their own rows")
+    if not all(math.isfinite(x) for x in losses) or first > 2e-2:
+        raise AssertionError(f"2-rank losses {losses} vs (b)'s first "
+                             f"{b['losses'][0]}")
+    peaks = [r["peak_gib"] for r in ranks]
+    reduce_s = ranks[0]["all_reduce_s"]
+    log(11, f"(c) preset=retrieval as 2 gloo ranks on the card, global B = "
+            f"16, {DP_STEPS} micro-steps at accumulation 2: losses "
+            f"{[round(x, 4) for x in losses]} (finite); first loss "
+            f"{losses[0]:.5f} (the mean of the ranks' "
+            f"{', '.join(f'{x:.5f}' for x in rank_losses)}) vs (b)'s "
+            f"{b['losses'][0]:.5f}, diff "
+            f"{first:.1e} (tol 2e-2); trainable weights bit-identical "
+            f"across ranks after each of {len(ranks[0]['digests'])} updates "
+            f"(sha256), and moved; peak memory per rank "
+            f"{', '.join(f'{p:.2f}' for p in peaks)} GiB; gradient "
+            f"all-reduce of {ranks[0]['reduce_gb']:.3f} GB over gloo "
+            f"{', '.join(f'{x * 1e3:.0f}' for x in reduce_s)} ms (host "
+            f"clock); micro-step host clock "
+            f"{', '.join(f'{x * 1e3:.0f}' for x in ranks[0]['step_s'])} ms; "
+            f"torchrun {secs:.1f} s",
+        losses=losses, rank_losses=rank_losses, first_loss_diff=first,
+        peak_gib=peaks,
+        all_reduce_s=reduce_s, reduce_gb=ranks[0]["reduce_gb"],
+        step_s=ranks[0]["step_s"], seconds=secs)
+    return {"peak_gib": peaks, "all_reduce_s": reduce_s}
+
+
+def dp_worker(part, out):
+    """One rank of phase 11, started by torchrun; saves what the parent
+    checks into ``out``."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if part == "b":
+        result = _dp_worker_b(out)
+    else:
+        # two ranks on one card: gloo (NCCL refuses them), from the
+        # launcher's environment
+        dist.init_process_group("gloo", init_method="env://")
+        try:
+            result = (_dp_worker_a if part == "a" else _dp_worker_c)()
+        finally:
+            dist.destroy_process_group()
+    rank = int(os.environ["RANK"])
+    torch.save(result, os.path.join(out, f"{part}_rank{rank}.pt"))
+
+
+def _dp_worker_a():
+    cfg = _dp_small_cfg()
+    return {"run": _step_run(cfg, _small_model(cfg), _small_batches(cfg),
+                             "cuda:0")}
+
+
+def _dp_worker_b(out):
+    """(b): the CLI twice (preempted, resumed) under the launcher's NCCL
+    group of one, K1-K4 counted from zero over both; then one micro-step
+    profiled without a group, and under a group this worker joins."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.parallel import collectives
+    from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    run = os.path.join(out, "run")
+    argv = ["device=cuda", "mesh.multihost=true"] + _dp_argv(run)
+    fk.log_mel.launches = 0
+    fk.log_mel.launches_by_frames.clear()
+    fk.normalize_and_stack.launches = 0
+    fa.LAUNCHES.clear()
+    first = cli.main(argv + [f"train.fault_inject_preempt_at={DP_FLAG_AT}"])
+    if first.get("preempted") != {"epoch": 1, "batches_done": DP_FLAG_AT}:
+        raise AssertionError(f"preemption: {first.get('preempted')}")
+    log_text = open(os.path.join(run, "training.log")).read()
+    if "Data parallel: 1 rank(s) over nccl" not in log_text:
+        raise AssertionError("the run did not take the NCCL data axis")
+    res = cli.main(argv)
+    torch.cuda.synchronize()
+    launches = {"log_mel": fk.log_mel.launches,
+                "log_mel_normalize": fk.normalize_and_stack.launches,
+                **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+    cfg, state, ep = res["cfg"], res["state"], res["epochs"][0]
+    if ep["skipped_batches"] != DP_FLAG_AT:
+        raise AssertionError(f"no mid-epoch resume: {ep}")
+    micro = DP_FLAG_AT + ep["train_batches"]
+    forwards = micro + ep["eval_batches"] + res["test_batches"] + \
+        res["retrieval_batches"]
+    layers = cfg.model.audio.num_layers
+    want = {"flash_rel_bwd_mma": layers * micro,
+            "flash_rel_fwd_mma": layers * forwards,
+            "flash_rel_fwd": 0, "flash_rel_bwd": 0,
+            "log_mel": forwards, "log_mel_normalize": forwards}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    losses = [s["loss"] for s in first["step_log"] + res["step_log"]]
+    if len(losses) != micro or not np.isfinite(losses).all():
+        raise AssertionError(f"micro-step losses {losses}")
+    fresh = ts.create_train_state(init_model(
+        cfg.model, torch.Generator("cuda").manual_seed(cfg.train.seed),
+        "cuda", train=True), cfg, total_steps=1)
+    for k, p in state.frozen.items():
+        if not torch.equal(p, fresh.frozen[k]):
+            raise AssertionError(f"frozen {k} changed")
+    moved = sum(not torch.equal(p, fresh.trainable[k])
+                for k, p in state.trainable.items())
+    if moved < 0.9 * len(state.trainable):
+        raise AssertionError(f"{moved} of {len(state.trainable)} trainable "
+                             "leaves moved")
+    del fresh
+    torch.cuda.empty_cache()
+    # the CLI left the group: the one-process step, then the same under it
+    alone = _profile_micro_step(11, res)
+    mesh_lib.maybe_initialize_distributed(True, "cuda")
+    try:
+        step = _profile_micro_step(11, res)
+        # the gradient all-reduce alone, on buffers of the trainable
+        # split's size: NCCL's in-place all-reduce of one rank and the
+        # bucket packing around it
+        bufs = [torch.zeros_like(p) for p in state.trainable.values()]
+        reduce = {"gb": sum(4 * b.numel() for b in bufs) / 1e9,
+                  "call_ms": cuda_ms(lambda: collectives.all_reduce_mean_(
+                      bufs), iters=3, warmup=1),
+                  "device_ms": device_ms(lambda: collectives.all_reduce_mean_(
+                      bufs), iters=3, warmup=1)}
+        del bufs
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches, "losses": losses, "micro": micro,
+            "updates": state.optimizer.count, "moved": moved,
+            "trainable": len(state.trainable), "peak_gib": ep["peak_mem_gib"],
+            "step": step, "alone": alone, "all_reduce": reduce}
+
+
+def _dp_worker_c():
+    """(c): ``preset=retrieval`` built as the CLI builds it, trained on this
+    rank's rows; the weights' sha256 after every update, the gradient
+    all-reduce timed on buffers of the trainable split's size."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.data import (
+        DataPipeline, make_source, resolve_tokenizer,
+    )
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import make_frontend
+    from speech_transcript_embeddings_torch.parallel import collectives
+    from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
+    from speech_transcript_embeddings_torch.training import loop
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    device = torch.device("cuda:0")
+    cfg = cli.build_config(_dp_argv("unused") +
+                           ["train.accumulation_steps=2"])
+    mesh = mesh_lib.make_mesh(cfg)
+    state = ts.create_train_state(init_model(
+        cfg.model, torch.Generator(device).manual_seed(cfg.train.seed),
+        device, train=True), cfg, total_steps=100)
+    frontend = make_frontend(cfg.model.frontend).to(device)
+    pipeline = DataPipeline(cfg.data, resolve_tokenizer(cfg),
+                            seed=cfg.train.seed)
+    source = make_source(cfg.data, seed=cfg.train.seed)
+    batches = itertools.islice(pipeline.epoch_batches(source, "train", 1),
+                               DP_STEPS)
+    gen = loop.dropout_generator(cfg.train.seed, device, mesh.rank)
+
+    def digest():
+        h = hashlib.sha256()
+        for p in state.trainable.values():
+            h.update(p.detach().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    start, digests, losses, step_s = digest(), [], [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = ts.train_step(cfg, state, frontend,
+                          mesh_lib.shard_batch(mesh, batch), gen)
+        if not losses:      # each rank's own rows: their losses differ
+            rank_losses = collectives.gather_host(m["loss"][None]).tolist()
+        losses.append(float(collectives.mean_over_ranks(m["loss"])))
+        torch.cuda.synchronize(device)
+        step_s.append(time.perf_counter() - t0)
+        if state.optimizer.mini_step == 0:
+            digests.append(digest())
+    if start in digests:
+        raise AssertionError("the trainable weights did not move")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    bufs = [torch.zeros_like(p) for p in state.trainable.values()]
+    all_reduce_s = []
+    for _ in range(2):
+        dist.barrier()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        collectives.all_reduce_mean_(bufs)
+        torch.cuda.synchronize(device)
+        all_reduce_s.append(time.perf_counter() - t0)
+    return {"digests": digests, "losses": losses, "peak_gib": peak,
+            "rank_losses": rank_losses,
+            "all_reduce_s": all_reduce_s, "step_s": step_s,
+            "reduce_gb": sum(4 * b.numel() for b in bufs) / 1e9}
+
+
 def _profile_micro_step(phase, res):
     """One warm micro-step of a finished run's model at its longest train
     bucket, timed on the host clock and under torch.profiler (after the
@@ -1975,15 +2387,21 @@ def _profile_micro_step(phase, res):
         step_ms = (time.perf_counter() - t1) * 1e3
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
+    # the collectives' kernels (NCCL's; none in one process)
+    nccl = [(ms, c) for ms, k, c in rows if "nccl" in k.lower()]
     top = "; ".join(f"{k[:48]} x{c} {ms:.1f} ms" for ms, k, c in rows[:8])
     out = dict(samples=int(batch["waveform"].shape[1]),
                step_ms=plain_step_ms, profiled_step_ms=step_ms,
-               device_busy_ms=busy, idle_share=1 - busy / plain_step_ms)
+               device_busy_ms=busy, idle_share=1 - busy / plain_step_ms,
+               collective_ms=sum(ms for ms, _ in nccl),
+               collective_kernels=sum(c for _, c in nccl))
     log(phase, f"one warm micro-step at {out['samples']} samples "
                f"(B={batch['waveform'].shape[0]}): {plain_step_ms:.1f} ms "
                f"(host clock, ends in a device sync), {step_ms:.1f} ms under "
                f"the profiler with device kernels busy {busy:.1f} ms (idle "
-               f"{out['idle_share']:.0%} of the unprofiled step); top device "
+               f"{out['idle_share']:.0%} of the unprofiled step), NCCL "
+               f"kernels {out['collective_ms']:.2f} ms in "
+               f"{out['collective_kernels']} launches; top device "
                f"time: {top}",
         **out, top=[{"kernel": k, "calls": c, "ms": ms}
                     for ms, k, c in rows[:25]])
@@ -2029,9 +2447,11 @@ def main():
     train, warm_clips_per_s = phase8()
     flagship, flagship_step, _ = phase9()
     converted = phase10()
+    dp_fp32, dp, dp2 = phase11()
     paths = {"serve": serve, "serve_int8": serve_int8, "train": train,
              "flagship_train": flagship, "converted_train": converted,
-             "serve_fp32": serve_fp32, "train_fp32": train_fp32}
+             "dp_train": dp["launches"], "serve_fp32": serve_fp32,
+             "train_fp32": train_fp32, "dp_fp32": dp_fp32}
     by_path = {name: {p: c.get(name, 0) for p, c in paths.items()}
                for name in train}
     at = MEL_SHAPES[-1]
@@ -2087,9 +2507,9 @@ def main():
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",
-                     "converted_train") if k["name"] not in (
+                     "converted_train", "dp_train") if k["name"] not in (
             "flash_rel_fwd", "flash_rel_bwd") else ("serve_fp32",
-                                                    "train_fp32")
+                                                    "train_fp32", "dp_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -2109,7 +2529,10 @@ def main():
                    "int8_products": {"small_model": int8_small,
                                      "serve_int8": serve_int8[
                                          "int8_products"]},
-                   "flagship_micro_step": flagship_step, **RECORD},
+                   "flagship_micro_step": flagship_step,
+                   "dp_micro_step_world_1": dp["step"],
+                   "dp_all_reduce_world_1": dp["all_reduce"],
+                   "dp_two_rank_gloo": dp2, **RECORD},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2118,4 +2541,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        dp_worker(sys.argv[2], sys.argv[3])
+    else:
+        main()

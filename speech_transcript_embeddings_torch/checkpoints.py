@@ -19,7 +19,10 @@ written into ``path.tmp`` and renamed over ``path``, so a crash mid-save
 never destroys the previous one. Foreign weights become a port checkpoint
 through ``convert_checkpoint.py`` (HF encoders, a reference ``*.pt``); the
 JAX package's orbax checkpoints are not read here: bring one across with
-``bridge.py`` in a process that has JAX.
+``bridge.py`` in a process that has JAX. Under data parallel training every
+rank holds the same weights and optimizer state: ``save_checkpoint`` writes
+on rank 0 while the other ranks wait at a barrier, and every rank restores
+onto its own device.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from speech_transcript_embeddings_torch.config import ExperimentConfig
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
+from speech_transcript_embeddings_torch.parallel import collectives
 
 FORMAT_VERSION = 1
 KIND = "torch_params"
@@ -88,23 +92,28 @@ def save_checkpoint(path: str, state, cfg: ExperimentConfig, epoch: int,
                     params_only: bool = False) -> int:
     """A training checkpoint of ``state`` (a ``TrainState``) after
     ``epoch``; ``params_only`` leaves out ``optimizer.pt`` (the best and
-    final checkpoints, which are only evaluated or served). → bytes
-    written."""
-    meta = {"format_version": FORMAT_VERSION, "kind": KIND, "epoch": epoch,
-            "params_only": params_only, "metrics": metrics or {},
-            "config": json.loads(cfg.to_json())}
-    files = {"model.pt": state.model.state_dict()}
-    if not params_only:
-        files["optimizer.pt"] = {"step": state.step,
-                                 "optimizer": state.optimizer.state_dict()}
-    return _write(path, meta, files)
+    final checkpoints, which are only evaluated or served). Under a process
+    group a collective: rank 0 writes, and every rank returns once it has.
+    → bytes written (0 on the other ranks)."""
+    size = 0
+    if collectives.rank() == 0:
+        meta = {"format_version": FORMAT_VERSION, "kind": KIND,
+                "epoch": epoch, "params_only": params_only,
+                "metrics": metrics or {}, "config": json.loads(cfg.to_json())}
+        files = {"model.pt": state.model.state_dict()}
+        if not params_only:
+            files["optimizer.pt"] = {
+                "step": state.step, "optimizer": state.optimizer.state_dict()}
+        size = _write(path, meta, files)
+    collectives.barrier()
+    return size
 
 
 @torch.no_grad()
 def restore_checkpoint(path: str, state):
     """Load a full training checkpoint into ``state`` in place (weights in
     the dtypes ``state.model`` stores them in, the optimizer's state, the
-    micro-step count) → ``state``. A params-only checkpoint has no
+    micro-step count), on the device ``state.model`` lives on → ``state``. A params-only checkpoint has no
     optimizer state to resume from and is refused."""
     if load_metadata(path).get("params_only", True):
         raise ValueError(
@@ -162,7 +171,7 @@ def _state_for(path: str, model: torch.nn.Module, device) -> dict:
 @torch.no_grad()
 def load_into(path: str, model: DualEncoderModel) -> DualEncoderModel:
     """Copy a port checkpoint's weights into ``model`` in place, in the
-    dtypes ``model`` stores them in."""
+    dtypes ``model`` stores them in, mapped straight to its device."""
     device = next(model.parameters()).device
     model.load_state_dict(_state_for(path, model, device), strict=True)
     return model

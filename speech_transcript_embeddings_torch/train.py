@@ -27,11 +27,25 @@ after a preemption (SIGTERM). Examples:
     python -m speech_transcript_embeddings_torch.train preset=retrieval \\
         data.synthetic_length_profile=cv \\
         train.output_dir=speech_transcript_embeddings_torch/_build/torch_ret
+
+Data parallel: one process per GPU, launched by ``torchrun``, which sets
+the process group's environment; ``data.batch_size`` is the GLOBAL batch,
+each of the N ranks trains on B/N of its rows, and NCCL averages the
+gradients (gloo with ``device=cpu``). A launch with ``WORLD_SIZE`` > 1, or
+``mesh.multihost=true``, joins the group before the run; ``device=cuda``
+then means card ``LOCAL_RANK``. Only rank 0 writes files:
+
+    torchrun --nproc_per_node=N -m speech_transcript_embeddings_torch.train \\
+        preset=retrieval data.batch_size=64 \\
+        train.output_dir=speech_transcript_embeddings_torch/_build/torch_dp
 """
 
 from __future__ import annotations
 
+import os
 import sys
+
+import torch
 
 from speech_transcript_embeddings_torch import config as config_lib
 
@@ -95,8 +109,20 @@ def main(argv=None) -> dict:
         if item.startswith("device="):
             device = item.split("=", 1)[1]
             argv.remove(item)
+    cfg = build_config(argv)
+    from speech_transcript_embeddings_torch.parallel import collectives
+    from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
     from speech_transcript_embeddings_torch.training.loop import run_experiment
-    return run_experiment(build_config(argv), device=device)
+    had_group = collectives.initialized()
+    mesh_lib.maybe_initialize_distributed(
+        cfg.mesh.multihost or int(os.environ.get("WORLD_SIZE", 1)) > 1,
+        device)
+    joined = not had_group and collectives.initialized()
+    try:
+        return run_experiment(cfg, device=device)
+    finally:
+        if joined:       # the group this call joined ends with it
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

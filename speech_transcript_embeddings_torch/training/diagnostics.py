@@ -5,6 +5,8 @@ mean of per-micro-batch gradients must equal the gradient of the batches
 concatenated, which is what accumulation applies. The check uses the
 pairwise loss (linear in per-sample terms, so the identity is exact; the
 global loss couples the samples of a batch by design) and no dropout.
+It makes no collective: under data parallel training every rank runs it
+identically, on the same whole probe batches, and none waits on another.
 """
 
 from __future__ import annotations

@@ -16,12 +16,28 @@ loss stays on the device with a CUDA event after it; both are read once
 the epoch has synced, so the step log adds no host sync to the batch loop.
 The dropout generator restarts from ``seed + 17`` in every process, as the
 JAX loop's key does.
+
+Data parallel (``parallel/``): under a process group every rank runs this
+loop on its own rows of each global batch (``shard_batch`` in the prefetch
+thread) with its own dropout stream (``seed + 17 + RANK_STREAM·rank``), and
+takes the data-parallel path at every world size, one included. The step
+log's losses and metrics are reduced to global means at the syncs the loop
+already has (the ``log_every_batches`` cadence, the end of an epoch), the
+evaluation's sums over ranks and its cosines and embeddings gathered, so
+every metric covers the whole split. The preemption is agreed after every
+batch (``preempt_agreed``, over host memory: no device sync), so every
+rank enters the mid-epoch save at the same batch, one micro-step after a
+SIGTERM at most. Rank 0 writes every file (checkpoints, plots,
+``config.json``, ``training.log``, the metrics JSON); every rank restores
+``latest`` onto its own device and skips the same batches.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
+import logging
 import math
 import os
 import threading
@@ -43,6 +59,8 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     init_model, l2_normalize,
 )
 from speech_transcript_embeddings_torch.ops import make_frontend
+from speech_transcript_embeddings_torch.parallel import collectives
+from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
 from speech_transcript_embeddings_torch.training.train_step import (
     _to_device, create_train_state, eval_step, train_step,
 )
@@ -51,6 +69,9 @@ from speech_transcript_embeddings_torch.training.train_step import (
 # ``latest`` with mid-epoch resume metadata at the next batch boundary and
 # returns
 _PREEMPT = threading.Event()
+
+# the distance between two ranks' dropout seeds: rank 0 keeps seed + 17
+RANK_STREAM = 1_000_003
 
 
 def request_preemption(signum=None, frame=None) -> None:
@@ -61,14 +82,28 @@ def request_preemption(signum=None, frame=None) -> None:
 
 
 def preempt_agreed(local: bool) -> bool:
-    """The preemption decision of all processes: this port trains in one
-    process (``check_supported``), so it is the local flag."""
-    return local
+    """The preemption decision of all processes: True on every rank when
+    any rank's flag is set (``any_rank``), since the mid-epoch save is a
+    collective that every rank must enter at the same batch. Called after
+    every batch on every rank. One process: the local flag."""
+    return collectives.any_rank(local)
 
 
-def check_supported(cfg: ExperimentConfig, device: torch.device) -> None:
+def dropout_generator(seed: int, device: torch.device,
+                      rank: int = 0) -> torch.Generator:
+    """The dropout and SpecAugment generator of a run: ``seed + 17`` (the
+    JAX loop's key) on rank 0, a stream of its own on every other rank,
+    so that ranks do not draw the same masks for different rows."""
+    return torch.Generator(device).manual_seed(seed + 17
+                                               + RANK_STREAM * rank)
+
+
+def check_supported(cfg: ExperimentConfig, device: torch.device
+                    ) -> mesh_lib.Mesh:
     """Raise for the fields this loop cannot honour without changing the
-    result of the run."""
+    result of the run; → the run's mesh (``make_mesh``: a ``mesh.num_data``
+    other than the number of ranks, a batch the ranks do not divide and
+    tensor parallel raise)."""
     latest = os.path.join(cfg.train.output_dir, "latest")
     if cfg.train.resume and ckpt_lib.checkpoint_exists(latest):
         meta = ckpt_lib.load_metadata(latest)
@@ -87,23 +122,31 @@ def check_supported(cfg: ExperimentConfig, device: torch.device) -> None:
                 "checkpoints only: convert HF encoders or a reference *.pt "
                 "with speech_transcript_embeddings_torch.convert_checkpoint, "
                 "and a JAX package (orbax) checkpoint with bridge.py")
-    if cfg.mesh.multihost:
-        raise NotImplementedError("mesh.multihost=True is not ported yet "
-                                  "(ROADMAP.md)")
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    data = n_dev if cfg.mesh.num_data == -1 else cfg.mesh.num_data
-    if data * cfg.mesh.num_model > 1:
-        raise NotImplementedError(
-            f"a {data}×{cfg.mesh.num_model} device mesh: data and tensor "
-            "parallel training are not ported yet (ROADMAP.md); run on one "
-            "device (mesh.num_data=1)")
+    return mesh_lib.make_mesh(cfg)
+
+
+def _gather_batches(parts) -> np.ndarray:
+    """This rank's per-batch rows (device tensors of one length) → every
+    rank's, on the host, in the order of the global batches: one
+    collective."""
+    local = torch.cat(parts)
+    n = collectives.world_size()
+    rows = collectives.gather_host(local)
+    # [rank, batch, row] → [batch, rank, row]: the global batches' order
+    return rows.reshape((n, len(parts), -1) + rows.shape[1:]).swapaxes(
+        0, 1).reshape((-1,) + rows.shape[1:])
 
 
 def evaluate(cfg, model, frontend, pipeline, source, split: str, epoch: int,
-             logger) -> Tuple[Dict[str, float], np.ndarray, np.ndarray, int]:
-    """→ (metrics, raw clean cosines, raw corrupt cosines, batches)."""
+             logger, mesh: mesh_lib.Mesh = mesh_lib.Mesh()
+             ) -> Tuple[Dict[str, float], np.ndarray, np.ndarray, int]:
+    """→ (metrics, raw clean cosines, raw corrupt cosines, batches), over
+    the whole split: under data parallel the sums are summed over the
+    ranks and the cosines gathered."""
     sums = []
-    for batch in prefetch(pipeline.epoch_batches(source, split, epoch), 2):
+    for batch in prefetch(map(functools.partial(mesh_lib.shard_batch, mesh),
+                              pipeline.epoch_batches(source, split, epoch)),
+                          2):
         sums.append(eval_step(cfg, model, frontend, batch))
     if not sums:
         logger.warning(f"No valid samples were processed during {split} "
@@ -112,14 +155,12 @@ def evaluate(cfg, model, frontend, pipeline, source, split: str, epoch: int,
                                  "std_similarity", "clean_similarity",
                                  "corrupt_similarity", "similarity_gap")}
         return zero, np.array([]), np.array([]), 0
-    loss_sum = float(sum(o["loss_sum"] for o in sums))
-    pairwise_sum = float(sum(o["pairwise_loss_sum"] for o in sums))
-    count = float(sum(o["count"] for o in sums))
-    masks = [o["example_mask"].cpu().numpy().astype(bool) for o in sums]
-    s_pos = np.concatenate([o["s_pos"].cpu().numpy()[m]
-                            for o, m in zip(sums, masks)])
-    s_neg = np.concatenate([o["s_neg"].cpu().numpy()[m]
-                            for o, m in zip(sums, masks)])
+    loss_sum, pairwise_sum, count = collectives.sum_over_ranks(torch.stack([
+        sum(o[k] for o in sums) for k in ("loss_sum", "pairwise_loss_sum",
+                                          "count")])).tolist()
+    masks = _gather_batches([o["example_mask"] for o in sums]).astype(bool)
+    s_pos = _gather_batches([o["s_pos"] for o in sums])[masks]
+    s_neg = _gather_batches([o["s_neg"] for o in sums])[masks]
     t = cfg.loss.temperature
     clean_hr = 1.0 / (1.0 + np.exp(-s_pos / t))
     corrupt_hr = 1.0 / (1.0 + np.exp(-s_neg / t))
@@ -140,27 +181,32 @@ def evaluate(cfg, model, frontend, pipeline, source, split: str, epoch: int,
 
 
 @torch.no_grad()
-def compute_retrieval(model, frontend, pipeline, source, split: str = "test"
+def compute_retrieval(model, frontend, pipeline, source, split: str = "test",
+                      mesh: mesh_lib.Mesh = mesh_lib.Mesh()
                       ) -> Tuple[Dict[str, float], int]:
     """Speech→text Recall@K over a split on *independent* embeddings
     (encoder → pooling → projection, no cross-modal fusion: fused
-    embeddings depend on the pair and cannot rank). → (metrics, batches)."""
+    embeddings depend on the pair and cannot rank). Under data parallel
+    each rank embeds its rows and the embeddings are gathered, so every
+    rank ranks the whole split. → (metrics, batches)."""
     device = next(model.parameters()).device
-    text_embs, audio_embs = [], []
-    for batch in pipeline.epoch_batches(source, split, epoch=0):
+    text_embs, audio_embs, keeps = [], [], []
+    for batch in map(functools.partial(mesh_lib.shard_batch, mesh),
+                     pipeline.epoch_batches(source, split, epoch=0)):
         features, amask = frontend(_to_device(batch["waveform"], device),
                                    _to_device(batch["num_samples"], device))
         te, _ = model.encode_text(_to_device(batch["input_ids_pos"], device),
                                   _to_device(batch["attention_mask_pos"],
                                              device))
         ae, _ = model.encode_audio(features, amask)
-        keep = batch["example_mask"].astype(bool)
-        text_embs.append(l2_normalize(te).cpu().numpy()[keep])
-        audio_embs.append(l2_normalize(ae).cpu().numpy()[keep])
+        keeps.append(_to_device(batch["example_mask"], device))
+        text_embs.append(l2_normalize(te))
+        audio_embs.append(l2_normalize(ae))
     if not text_embs:
         return {}, 0
-    return retrieval_metrics(np.concatenate(audio_embs),
-                             np.concatenate(text_embs)), len(text_embs)
+    keep = _gather_batches(keeps).astype(bool)
+    return retrieval_metrics(_gather_batches(audio_embs)[keep],
+                             _gather_batches(text_embs)[keep]), len(text_embs)
 
 
 def _sync(device: torch.device) -> None:
@@ -210,15 +256,42 @@ def run_experiment(cfg: ExperimentConfig, device="cuda", source=None,
             signal.signal(signal.SIGTERM, prev)
 
 
+def _rank_logger(rank: int) -> logging.Logger:
+    """The logger of a rank other than 0, which writes no file: its
+    warnings and errors go to the console."""
+    logger = logging.getLogger(f"ste_torch.rank{rank}")
+    logger.setLevel(logging.WARNING)
+    logger.propagate = False
+    if not logger.handlers:
+        console = logging.StreamHandler()
+        console.setFormatter(logging.Formatter(
+            f"rank {rank} %(asctime)s %(levelname)s %(message)s"))
+        logger.addHandler(console)
+    return logger
+
+
 def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     logger) -> dict:
     device = resolve_device(device)
-    check_supported(cfg, device)
+    mesh = check_supported(cfg, device)
+    writer = mesh.rank == 0          # the one rank that writes files
+    if collectives.initialized() and device.type == "cuda":
+        # the launcher's card, before the first collective binds NCCL to it
+        if device.index not in (None, mesh.local_rank):
+            raise ValueError(
+                f"device={device} but this rank's LOCAL_RANK is "
+                f"{mesh.local_rank}: pass device=cuda, and each rank takes "
+                "the card of its LOCAL_RANK")
+        device = torch.device("cuda", mesh.local_rank)
+        torch.cuda.set_device(device)
     out_dir = cfg.train.output_dir
-    os.makedirs(out_dir, exist_ok=True)
-    logger = logger or artifacts.setup_run_logging(out_dir)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
+        logger = logger or artifacts.setup_run_logging(out_dir)
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+    else:
+        logger = logger or _rank_logger(mesh.rank)
     if device.type == "cuda":
         # fp32 products in full fp32, as the JAX package runs them
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -245,6 +318,13 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
     logger.info(f"  Training samples: {source.num_examples('train')}")
     logger.info(f"  Validation samples: {source.num_examples('validation')}")
     logger.info(f"  Test samples: {source.num_examples('test')}")
+    if collectives.initialized():
+        off, per = mesh_lib.host_batch_slice(cfg.data.batch_size, mesh)
+        logger.info(
+            f"Data parallel: {mesh.data} rank(s) over "
+            f"{torch.distributed.get_backend()}; rank {mesh.rank} feeds rows "
+            f"[{off}:{off + per}] of each global batch; gradients averaged "
+            f"every micro-step; preemption agreed every batch")
 
     model = init_model(cfg.model, torch.Generator(device).manual_seed(
         cfg.train.seed), device, train=True)
@@ -282,10 +362,11 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
         size = ckpt_lib.save_checkpoint(os.path.join(out_dir, name), state,
                                         cfg, epoch, metrics, params_only)
         secs = time.perf_counter() - t0
-        results["saves"].append({"name": name, "bytes": size,
-                                 "seconds": secs})
-        logger.info(f"Saved {name}: {size / 2 ** 20:.1f} MiB in "
-                    f"{secs:.1f} s")
+        if writer:
+            results["saves"].append({"name": name, "bytes": size,
+                                     "seconds": secs})
+            logger.info(f"Saved {name}: {size / 2 ** 20:.1f} MiB in "
+                        f"{secs:.1f} s")
 
     start_epoch, skip = 1, 0
     best_val_loss, best_gap = float("inf"), 0.0
@@ -333,7 +414,9 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
         results["gradient_check"] = diagnostics.validate_gradient_accumulation(
             cfg, state, frontend, probe)
 
-    generator = torch.Generator(device).manual_seed(cfg.train.seed + 17)
+    generator = dropout_generator(cfg.train.seed, device, mesh.rank)
+    # under a process group every rank must agree to preempt
+    agreed = cfg.train.preempt_checkpoint and collectives.initialized()
     for epoch in range(start_epoch, cfg.train.num_epochs + 1):
         try:
             t0 = time.perf_counter()
@@ -342,13 +425,15 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
             n_batches = 0
             steps = []      # (samples, loss on the device, mark) per step
             offset = skip if epoch == start_epoch else 0
-            batches = prefetch(itertools.islice(
-                pipeline.epoch_batches(source, "train", epoch), offset, None),
+            batches = prefetch(map(
+                functools.partial(mesh_lib.shard_batch, mesh),
+                itertools.islice(pipeline.epoch_batches(source, "train",
+                                                        epoch), offset, None)),
                 cfg.train.prefetch_batches)
             prof = None     # the profiler while it traces
             for batch in batches:
                 if (cfg.train.profile_dir and epoch == start_epoch
-                        and n_batches == 2):
+                        and n_batches == 2 and writer):
                     prof = _start_profiler(device)
                 metrics = train_step(cfg, state, frontend, batch, generator)
                 acc = metrics if acc is None else {
@@ -359,8 +444,12 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                 if (inject_at is not None and epoch == start_epoch
                         and n_batches + 1 >= inject_at):
                     request_preemption()
-                if cfg.train.preempt_checkpoint and \
-                        preempt_agreed(_PREEMPT.is_set()):
+                if agreed:
+                    # every rank reaches this batch: a matched collective
+                    stop = preempt_agreed(_PREEMPT.is_set())
+                else:
+                    stop = cfg.train.preempt_checkpoint and _PREEMPT.is_set()
+                if stop:
                     if prof is not None:
                         _stop_profiler(prof, cfg, logger)
                     batches.close()      # stop the prefetch thread
@@ -385,7 +474,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     prof = None
                 if n_batches % cfg.train.log_every_batches == 0:
                     # the only host sync in the batch loop
-                    a = {k: float(v) / n_batches for k, v in acc.items()}
+                    a = _global_mean(acc, n_batches)
                     mem = _gib(torch.cuda.memory_allocated, device)
                     logger.info(
                         f"Epoch {epoch} batch {n_batches}: "
@@ -415,7 +504,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                 / max(_seconds(steps[0][2], steps[-1][2]), 1e-9)
                 if n_batches > 1 else 0.0)
             n = max(n_batches, 1)
-            a = ({k: float(v) / n for k, v in acc.items()} if acc is not None
+            a = (_global_mean(acc, n) if acc is not None
                  else {"loss": 0.0, "clean_hr": 0.0, "corrupt_hr": 0.0,
                        "grad_norm": 0.0})
             train_metrics = {
@@ -431,7 +520,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
             peak = _gib(torch.cuda.max_memory_allocated, device)
             val_metrics, val_s_pos, val_s_neg, n_eval = evaluate(
                 cfg, state.model, frontend, pipeline, source, "validation",
-                epoch, logger)
+                epoch, logger, mesh)
             clean_history.append(val_metrics["clean_similarity"])
             corrupt_history.append(val_metrics["corrupt_similarity"])
             logger.info(
@@ -474,8 +563,8 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                 save("best_model_gap", epoch, meta, params_only=True)
             if cfg.train.save_every and epoch % cfg.train.save_every == 0:
                 save(f"checkpoint_epoch_{epoch}", epoch, meta)
-            if epoch % cfg.train.plot_every == 0 or \
-                    epoch == cfg.train.num_epochs:
+            if writer and (epoch % cfg.train.plot_every == 0
+                           or epoch == cfg.train.num_epochs):
                 artifacts.plot_similarity_distributions(
                     val_s_pos, val_s_neg,
                     os.path.join(out_dir, f"similarity_dist_epoch_{epoch}.png"))
@@ -506,14 +595,16 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     f"{ckpt_lib.load_metadata(path)['epoch']}")
         metrics, s_pos, s_neg, n = evaluate(
             cfg, eval_model, frontend, pipeline, source, "test",
-            cfg.train.num_epochs + 1, logger)
+            cfg.train.num_epochs + 1, logger, mesh)
         del eval_model
         test_batches += n
         test_results[f"{kind.replace('best_model', 'best')}_model"] = metrics
-        artifacts.plot_similarity_distributions(
-            s_pos, s_neg, os.path.join(
-                out_dir, f"test_similarity_dist_{kind.replace('model_', '')}.png"))
-    artifacts.write_test_metrics(out_dir, test_results)
+        if writer:
+            artifacts.plot_similarity_distributions(s_pos, s_neg, os.path.join(
+                out_dir,
+                f"test_similarity_dist_{kind.replace('model_', '')}.png"))
+    if writer:
+        artifacts.write_test_metrics(out_dir, test_results)
     results["test_batches"] = test_batches
 
     # speech→text retrieval on the test split with the best-gap (else
@@ -525,10 +616,12 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
         _, eval_model = ckpt_lib.load_checkpoint(
             os.path.join(out_dir, best_kind), device)
         retrieval, results["retrieval_batches"] = compute_retrieval(
-            eval_model, frontend, pipeline, source, "test")
+            eval_model, frontend, pipeline, source, "test", mesh)
         del eval_model
-        with open(os.path.join(out_dir, "retrieval_metrics.json"), "w") as f:
-            json.dump({best_kind: retrieval}, f, indent=2)
+        if writer:
+            with open(os.path.join(out_dir, "retrieval_metrics.json"),
+                      "w") as f:
+                json.dump({best_kind: retrieval}, f, indent=2)
         logger.info(f"Retrieval ({best_kind}): " + ", ".join(
             f"{k}={v:.4f}" for k, v in retrieval.items()))
         results["retrieval"] = retrieval
@@ -548,11 +641,25 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
     return results
 
 
+def _global_mean(acc: dict, n: int) -> dict:
+    """Each metric summed over ``n`` micro-steps → its mean, averaged over
+    the ranks under a process group (one collective)."""
+    values = list(acc.values())
+    if collectives.initialized():
+        values = collectives.mean_over_ranks(torch.stack(values)).tolist()
+    return {k: float(v) / n for k, v in zip(acc, values)}
+
+
 def _step_log(epoch, offset, start, steps):
-    """The epoch's step-log entries (after a device sync)."""
+    """The epoch's step-log entries (after a device sync); each loss the
+    mean over the ranks under a process group (one collective)."""
+    losses = [loss for _, loss, _ in steps]
+    if collectives.initialized() and steps:
+        losses = collectives.mean_over_ranks(torch.stack(losses)).tolist()
     return [{"epoch": epoch, "batch": offset + i + 1, "samples": samples,
              "loss": float(loss), "t": _seconds(start, mark)}
-            for i, (samples, loss, mark) in enumerate(steps)]
+            for i, ((samples, _, mark), loss) in enumerate(zip(steps,
+                                                               losses))]
 
 
 def _start_profiler(device):

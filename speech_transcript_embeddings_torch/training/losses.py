@@ -5,9 +5,10 @@ Port of ``speech_transcript_embeddings_tpu/training/losses.py``:
 * ``pairwise`` — 2-way InfoNCE as cross-entropy over ``[s_pos, s_neg] / τ``
   with an optional corrupt penalty (reference parity);
 * ``global`` — in-batch-negative InfoNCE: each clip scored against every
-  clean and every corrupted transcript of the batch. This port runs one
-  process: the cross-device gather (``axis_name``) raises until data
-  parallel training is ported.
+  clean and every corrupted transcript of the GLOBAL batch. Under data
+  parallel training (``axis_name="data"``) each rank holds its own rows and
+  gathers every rank's transcripts with ``parallel.collectives.gather_rows``,
+  whose backward sums each row's gradient over every rank's loss.
 
 With the word-alignment head on, each sample's term is weighted by
 ``1 − sigmoid(mean token score)·alignment_weight``.
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from speech_transcript_embeddings_torch.config import LossConfig
+from speech_transcript_embeddings_torch.parallel import collectives
 
 
 class LossAux(NamedTuple):
@@ -60,20 +62,36 @@ def pairwise_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
     return loss, LossAux(s_pos=s_pos, s_neg=s_neg)
 
 
+def _gathered(text_pos, text_neg, axis_name):
+    """(every rank's clean transcripts, every rank's corrupted ones, this
+    rank's offset in them): one ``gather_rows`` of both, so the forward and
+    the backward each make one collective."""
+    if axis_name is None:
+        return text_pos, text_neg, 0
+    collectives.require(axis_name)
+    b = text_pos.shape[0]
+    both = collectives.gather_rows(torch.cat([text_pos, text_neg], dim=0))
+    both = both.reshape(-1, 2, b, text_pos.shape[-1])         # [N, 2, B, D]
+    return (both[:, 0].reshape(-1, text_pos.shape[-1]),
+            both[:, 1].reshape(-1, text_pos.shape[-1]),
+            collectives.rank() * b)
+
+
 def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
                     alignment_scores=None, axis_name: Optional[str] = None):
     """In-batch-negative InfoNCE: row i's candidates are every clean and
-    every corrupted transcript of the batch; its target is its own clean
-    transcript."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "global_info_nce across processes is not ported yet (ROADMAP.md, "
-            "data parallel): call it with axis_name=None")
+    every corrupted transcript of the global batch; its target is its own
+    clean transcript. With ``axis_name`` (data parallel) the rows are this
+    rank's: logits ``[B_local, 2·B_global]``, labels ``rank·B_local + i``,
+    and the loss (the corrupt penalty too) the local mean, so that the
+    mean of the ranks' gradients is the gradient of the global batch's
+    loss, as JAX's ``shard_map`` form computes it."""
+    all_pos, all_neg, shard = _gathered(text_pos, text_neg, axis_name)
     b = audio.shape[0]
-    cand = torch.cat([text_pos, text_neg], dim=0)             # [2B, D]
-    logits = (audio @ cand.T) / cfg.temperature               # [B, 2B]
+    cand = torch.cat([all_pos, all_neg], dim=0)               # [2·Bg, D]
+    logits = (audio @ cand.T) / cfg.temperature               # [Bl, 2·Bg]
     idx = torch.arange(b, device=audio.device)
-    per_sample = -F.log_softmax(logits, dim=-1)[idx, idx]
+    per_sample = -F.log_softmax(logits, dim=-1)[idx, shard + idx]
     factor = alignment_factor(alignment_scores, cfg.alignment_weight)
     if factor is not None:
         per_sample = per_sample * factor
@@ -86,19 +104,25 @@ def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
 
 
 def global_per_sample_masked(cfg: LossConfig, text_pos, text_neg, audio,
-                             example_mask, alignment_scores=None):
+                             example_mask, alignment_scores=None,
+                             axis_name: Optional[str] = None):
     """Per-sample in-batch InfoNCE for evaluation under masked tails: the
     candidate columns of padded rows (``example_mask`` 0) are removed
     before the log-softmax. Entries of padded rows are meaningless; the
-    caller's mask zeroes them."""
+    caller's mask zeroes them. With ``axis_name`` the rows are this rank's,
+    scored against the whole batch's candidates, whose masks are gathered
+    with them (a padded row on another rank is still no candidate)."""
+    all_pos, all_neg, shard = _gathered(text_pos, text_neg, axis_name)
+    all_mask = example_mask if axis_name is None else \
+        collectives.gather_rows(example_mask)
     b = audio.shape[0]
-    cand = torch.cat([text_pos, text_neg], dim=0)
+    cand = torch.cat([all_pos, all_neg], dim=0)
     logits = (audio @ cand.T) / cfg.temperature
-    cmask = torch.cat([example_mask, example_mask], dim=0) > 0
+    cmask = torch.cat([all_mask, all_mask], dim=0) > 0
     logits = torch.where(cmask[None, :], logits,
                          torch.finfo(logits.dtype).min)
     idx = torch.arange(b, device=audio.device)
-    per = -F.log_softmax(logits, dim=-1)[idx, idx]
+    per = -F.log_softmax(logits, dim=-1)[idx, shard + idx]
     factor = alignment_factor(alignment_scores, cfg.alignment_weight)
     if factor is not None:
         per = per * factor

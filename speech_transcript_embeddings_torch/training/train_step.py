@@ -23,6 +23,7 @@ from speech_transcript_embeddings_torch.config import ExperimentConfig
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
+from speech_transcript_embeddings_torch.parallel import collectives
 from speech_transcript_embeddings_torch.training import losses
 from speech_transcript_embeddings_torch.training import optimizer as opt_lib
 
@@ -86,19 +87,29 @@ def model_batch_from_host(frontend, batch: dict, device) -> dict:
     return out
 
 
+def data_axis() -> Optional[str]:
+    """``"data"`` under a process group (every rank of it on the data
+    axis), None in one process."""
+    return "data" if collectives.initialized() else None
+
+
 def train_step(cfg: ExperimentConfig, state: TrainState, frontend,
                batch: dict, generator: Optional[torch.Generator]) -> dict:
     """One micro-step → metrics (device tensors: no host sync): ``loss``,
-    ``clean_hr``, ``corrupt_hr`` and ``grad_norm`` of this micro-batch's
-    raw gradient."""
+    ``clean_hr``, ``corrupt_hr`` (this rank's rows under data parallel)
+    and ``grad_norm`` of this micro-batch's raw gradient (averaged over the
+    ranks)."""
     device = next(iter(state.trainable.values())).device
+    axis = data_axis()
     mb = model_batch_from_host(frontend, batch, device)
     out = state.model.forward_pos_neg(mb, generator)
-    loss, aux = losses.compute_loss(cfg.loss, out)
+    loss, aux = losses.compute_loss(cfg.loss, out, axis)
     params = list(state.trainable.values())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(state.trainable.items(), grads)}
+    if axis is not None:
+        collectives.all_reduce_mean_(list(grads.values()))
     grad_norm = opt_lib.global_norm(grads.values())
     state.optimizer.step(grads)
     state.step += 1
@@ -128,7 +139,9 @@ def eval_step(cfg: ExperimentConfig, model: DualEncoderModel, frontend,
     """Per-batch sums and raw cosines (JAX ``make_eval_step``): ``loss_sum``
     is the training objective (the masked in-batch InfoNCE for
     ``kind='global'``, the pairwise CE otherwise), ``pairwise_loss_sum``
-    the pairwise CE in both modes."""
+    the pairwise CE in both modes. Under data parallel the sums and cosines
+    are this rank's rows (the caller sums over ranks), each scored against
+    the whole batch's candidates for ``kind='global'``."""
     device = next(model.parameters()).device
     mb = model_batch_from_host(frontend, batch, device)
     out = model.forward_pos_neg(mb, None)
@@ -139,7 +152,7 @@ def eval_step(cfg: ExperimentConfig, model: DualEncoderModel, frontend,
     if cfg.loss.kind == "global":
         per_obj = losses.global_per_sample_masked(
             cfg.loss, out.text_pos, out.text_neg, out.audio, m,
-            out.alignment_scores)
+            out.alignment_scores, data_axis())
     else:
         per_obj = per_pair
     return {"loss_sum": torch.sum(per_obj * m),

@@ -15,6 +15,7 @@ from speech_transcript_embeddings_torch import checkpoints
 from speech_transcript_embeddings_torch import train as torch_train
 from speech_transcript_embeddings_torch.inference.embed import Embedder
 from speech_transcript_embeddings_torch.models.dual_encoder import init_model
+from speech_transcript_embeddings_torch.parallel import mesh as tmesh
 from speech_transcript_embeddings_torch.training import loop
 
 HEADS_OFF = ["model.heads.use_cross_modal=false",
@@ -90,15 +91,29 @@ def test_cuda_without_a_card_raises(tmp_path):
         torch_train.main(["preset=tiny", f"train.output_dir={tmp_path}"])
 
 
-@pytest.mark.parametrize("override,match", [
-    ("mesh.multihost=true", "multihost"),
-    ("mesh.num_data=2", "data and tensor parallel"),
-    ("mesh.num_model=2", "data and tensor parallel"),
+@pytest.mark.parametrize("override,error,match", [
+    # with no launcher environment a multihost run is one process
+    pytest.param("mesh.multihost=true", None, None,
+                 id="mesh.multihost=true-multihost"),
+    # one process is a data axis of one rank
+    pytest.param("mesh.num_data=2", ValueError,
+                 r"mesh.num_data=2 but the process group has 1 rank",
+                 id="mesh.num_data=2-data and tensor parallel"),
+    pytest.param("mesh.num_model=2", NotImplementedError,
+                 "tensor parallel training", id="mesh.num_model=2-data and "
+                 "tensor parallel"),
 ])
-def test_fields_the_loop_cannot_honour_raise(tmp_path, override, match):
+def test_fields_the_loop_cannot_honour_raise(tmp_path, override, error,
+                                             match):
+    """Data parallel is ported (parallel/mesh.py): the mesh must match the
+    process group, and tensor parallel is still refused."""
     cfg = torch_train.build_config(
         ["preset=tiny", f"train.output_dir={tmp_path}", override])
-    with pytest.raises(NotImplementedError, match=match):
+    if error is None:
+        assert loop.check_supported(cfg, torch.device("cpu")) == \
+            tmesh.Mesh(data=1, model=1, rank=0, local_rank=0)
+        return
+    with pytest.raises(error, match=match):
         loop.check_supported(cfg, torch.device("cpu"))
 
 

@@ -255,7 +255,9 @@ def test_global_loss_is_the_full_matrix_softmax_ce():
     loss, _ = losses.global_info_nce(port_cfg(cfg), *(torch.from_numpy(a)
                                             for a in (tp, tn, au)))
     np.testing.assert_allclose(float(loss), expected, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    # the data axis needs a process group (tests/test_torch_parallel.py)
+    with pytest.raises(RuntimeError,
+                       match="no torch.distributed process group"):
         losses.global_info_nce(port_cfg(cfg), *(torch.from_numpy(a)
                                       for a in (tp, tn, au)), axis_name="data")
 
