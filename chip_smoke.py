@@ -34,9 +34,14 @@ and trained two micro-steps from ``train.init_checkpoint``. Data parallel
 ``--dp-worker``): a small fp32 model as 2 gloo ranks on the card against
 one process; ``preset=retrieval`` through the CLI under NCCL at world size
 1, preempted by an agreed flag and resumed; the same model as 2 gloo ranks
-on the card, their weights bit-identical. Phases 4, 5, 7, 8, 9, 10 and 11
-check that their path went through its kernels (and, in int8, its int8
-products), counted from zero. Each phase
+on the card, their weights bit-identical. Tensor parallel (phase 12),
+``mesh.num_model=2`` as 2 gloo ranks on the card: phase 7's small model in
+fp32 and bf16 against one process; ``preset=retrieval`` through the CLI,
+each rank's peak memory beside the one-rank peak of the same step, its
+``final_model`` served in one process; the CLI under NCCL where there are
+two cards. Phases 4, 5, 7, 8, 9, 10, 11 and 12 check that their path went
+through its kernels (and, in int8, its int8 products), counted from
+zero. Each phase
 prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
@@ -1181,43 +1186,57 @@ def _small_model(cfg):
     return init_model(cfg.model, torch.Generator().manual_seed(7), train=True)
 
 
-def _step_run(cfg, model, batches, device):
-    """One optimizer step (accumulation 2) of a copy of ``model`` on
-    ``device`` from two host batches, dropout off: each micro-batch's
-    gradient before any update, ``train_step``'s metrics, the trainable
-    weights after, the flash launches. Under a process group (phase 11)
-    each rank takes its rows of every batch, and the gradients and the loss
-    are averaged over the ranks, as the train step averages them. Checks
-    one update and the frozen split unchanged."""
+def _step_run(cfg, model, batches, device, dropout=False):
+    """One optimizer step (accumulation 2) of ``model``'s weights on
+    ``device`` from two host batches: each micro-batch's gradient before
+    any update, ``train_step``'s metrics, the trainable weights after, the
+    flash launches. With ``dropout``, dropout and SpecAugment draw from the
+    run's stream, restarted for each pass. Under a process group (phases
+    11, 12) the model sits on ``cfg``'s mesh: each rank takes its data
+    index's rows of every batch, and the gradients and the loss are
+    averaged over the data axis, as the train step averages them; under
+    tensor parallel the weights, gradients and results are this rank's
+    shards. Checks one update and the frozen split unchanged."""
     import torch
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        DualEncoderModel,
+    )
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     from speech_transcript_embeddings_torch.ops import make_frontend
     from speech_transcript_embeddings_torch.parallel import collectives
     from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
-    from speech_transcript_embeddings_torch.training import losses
+    from speech_transcript_embeddings_torch.training import loop, losses
     from speech_transcript_embeddings_torch.training import train_step as ts
-    fa.LAUNCHES.clear()       # counts of this fp32 path start at zero
-    state = ts.create_train_state(copy.deepcopy(model).to(device), cfg,
-                                  total_steps=4)
+    fa.LAUNCHES.clear()       # counts of this path start at zero
+    mesh = mesh_lib.make_mesh(cfg) if collectives.initialized() \
+        else mesh_lib.Mesh()
+    with torch.device(device):
+        replica = DualEncoderModel(cfg.model, torch.float32,
+                                   mesh.model_axis())
+    replica.load_state_dict(mesh_lib.shard_state(model.state_dict(), mesh))
+    state = ts.create_train_state(replica, cfg, total_steps=4, mesh=mesh)
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     frontend = make_frontend(cfg.model.frontend).to(device)
-    mesh = mesh_lib.make_mesh(cfg)
     batches = [mesh_lib.shard_batch(mesh, b) for b in batches]
-    grads = []          # per micro-batch, before any update
+    group = mesh.data_group
+    stream = lambda: loop.dropout_generator(  # noqa: E731
+        cfg.train.seed, torch.device(device), mesh.data_index) \
+        if dropout else None
+    grads, gen = [], stream()      # per micro-batch, before any update
     for b in batches:
         out = state.model.forward_pos_neg(ts.model_batch_from_host(
-            frontend, b, device), None)
+            frontend, b, device), gen)
         gs = torch.autograd.grad(
-            losses.compute_loss(cfg.loss, out, ts.data_axis())[0],
+            losses.compute_loss(cfg.loss, out, ts.data_axis(), group)[0],
             list(state.trainable.values()), allow_unused=True)
         gs = [torch.zeros_like(p) if g is None else g
               for p, g in zip(state.trainable.values(), gs)]
-        collectives.all_reduce_mean_(gs)
+        collectives.all_reduce_mean_(gs, group)
         grads.append({k: g.cpu() for k, g in zip(state.trainable, gs)})
-    metrics = []
+    metrics, gen = [], stream()
     for b in batches:
-        m = ts.train_step(cfg, state, frontend, b, None)
-        m["loss"] = collectives.mean_over_ranks(m["loss"])
+        m = ts.train_step(cfg, state, frontend, b, gen)
+        m["loss"] = collectives.mean_over_ranks(m["loss"], group)
         metrics.append({k: float(v) for k, v in m.items()})
     if state.optimizer.count != 1:
         raise AssertionError(f"{state.optimizer.count} updates after two "
@@ -2011,14 +2030,15 @@ DP_DROPOUT_OFF = ("model.text.hidden_dropout=0.0",
 def _dp_argv(out):
     """``preset=retrieval`` at B = 16 (global) on CV lengths, dropout and
     SpecAugment off, no warmup."""
-    return ["preset=retrieval", "data.synthetic_length_profile=cv",
+    return ["preset=retrieval", "data.batch_size=16",
+            "data.synthetic_length_profile=cv",
             "train.num_epochs=1", "train.save_every=0",
             "optimizer.warmup_steps=0",
             f"data.num_synthetic_samples={DP_CLIPS}",
             f"train.output_dir={out}", *DP_DROPOUT_OFF]
 
 
-def _torchrun(nproc, part, out, timeout):
+def _torchrun(nproc, part, out, timeout, phase=11):
     """Run ``chip_smoke.py --dp-worker PART OUT`` as ``nproc`` ranks under
     torchrun (a free local port), in a session of its own that is killed
     whole if it outlives ``timeout``; raise unless every rank exited 0.
@@ -2036,16 +2056,16 @@ def _torchrun(nproc, part, out, timeout):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         text = proc.communicate()[0]
-        raise RuntimeError(f"phase 11 ({part}) outlived {timeout} s:\n"
+        raise RuntimeError(f"phase {phase} ({part}) outlived {timeout} s:\n"
                            f"{text[-6000:]}")
     secs = time.perf_counter() - t0
     with open(os.path.join(out, f"{part}.log"), "w") as f:
         f.write(text)
     if proc.returncode != 0:
-        raise RuntimeError(f"phase 11 ({part}): torchrun exited "
+        raise RuntimeError(f"phase {phase} ({part}): torchrun exited "
                            f"{proc.returncode}:\n{text[-6000:]}")
     for line in text.splitlines():
-        if line.startswith("[phase 11]"):
+        if line.startswith(f"[phase {phase}]"):
             print(line, flush=True)
     return secs
 
@@ -2179,20 +2199,26 @@ def _phase11c(tmp, b):
 
 
 def dp_worker(part, out):
-    """One rank of phase 11, started by torchrun; saves what the parent
-    checks into ``out``."""
+    """One rank of phase 11 or 12, started by torchrun; saves what the
+    parent checks into ``out``."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if part == "b":
-        result = _dp_worker_b(out)
+    if part in ("b", "tp-c"):       # NCCL, joined by the CLI
+        result = (_dp_worker_b if part == "b" else _tp_worker_c)(out)
     else:
+        # phase 12 (b): rank 0 takes the one-rank step before the group
+        # exists (rank 1 waits to join it)
+        ref = _tp_reference(out) if part == "tp-b" and \
+            os.environ["RANK"] == "0" else None
         # two ranks on one card: gloo (NCCL refuses them), from the
         # launcher's environment
         dist.init_process_group("gloo", init_method="env://")
         try:
-            result = (_dp_worker_a if part == "a" else _dp_worker_c)()
+            result = {"a": _dp_worker_a, "c": _dp_worker_c,
+                      "tp-a": _tp_worker_a,
+                      "tp-b": lambda: _tp_worker_b(out, ref)}[part]()
         finally:
             dist.destroy_process_group()
     rank = int(os.environ["RANK"])
@@ -2360,6 +2386,550 @@ def _dp_worker_c():
             "reduce_gb": sum(4 * b.numel() for b in bufs) / 1e9}
 
 
+# phase 12: tensor parallel, the mesh's model axis of 2, as 2 gloo ranks on
+# the one card (NCCL refuses two ranks on one device): (a) the small model
+# of phase 7 in fp32 and in bf16, dropout on, the clip firing; (b)
+# preset=retrieval through the CLI on phase 9's CV lengths at one bucket;
+# (c) the CLI under NCCL with a card per rank, where there are two cards
+TP_CLIP = 0.1            # (a): max_grad_norm, below the small model's norms
+TP_CLIPS = 32            # (b): 2 micro-steps of 16, one update
+TP_UPDATES = 1           # (b): the CLI's schedule length for TP_CLIPS
+TP_NORM_TOL = 4e-3       # (b): grad norm, relative, against model=1
+TP_UPDATE_COS = 0.9      # (b): the update's cosine against model=1
+TP_BUCKET = 164080
+
+
+def _tp_argv(out):
+    """(b): ``preset=retrieval`` at B = 16 on CV lengths, every clip at
+    the 164,080 bucket, accumulation 2, dropout and SpecAugment off, no
+    warmup."""
+    return ["preset=retrieval", "data.batch_size=16",
+            "data.synthetic_length_profile=cv",
+            f"data.audio_buckets=[{TP_BUCKET}]",
+            f"data.max_audio_samples={TP_BUCKET}", "train.num_epochs=1",
+            "train.accumulation_steps=2",
+            "train.save_every=0", "optimizer.warmup_steps=0",
+            f"data.num_synthetic_samples={TP_CLIPS}",
+            f"train.output_dir={out}", *DP_DROPOUT_OFF]
+
+
+def _tp_small_cfg(dtype):
+    cfg = _train_cfg_small()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype=dtype),
+        optimizer=dataclasses.replace(cfg.optimizer, max_grad_norm=TP_CLIP),
+        mesh=dataclasses.replace(cfg.mesh, num_model=2))
+
+
+def _tp_worker_a():
+    """(a): the small model's step at model=2, fp32 then bf16."""
+    cfgs = {d: _tp_small_cfg(d) for d in ("float32", "bfloat16")}
+    return {d: _step_run(cfg, _small_model(cfg), _small_batches(cfg),
+                         "cuda:0", dropout=True) for d, cfg in cfgs.items()}
+
+
+def _merge_run(ranks, model):
+    """Two model ranks' ``_step_run`` results → one whole run: the
+    trainable weights and each micro-batch's gradient merged from their
+    shards, checking that every replicated leaf agrees bit for bit."""
+    from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+    def merge(parts, what):
+        out = {}
+        for k in parts[0]:
+            if mesh_lib.shard_dim(k) is None and \
+                    not parts[1][k].equal(parts[0][k]):
+                raise AssertionError(f"the model ranks' replicated {what} "
+                                     f"{k} differ")
+            out[k] = mesh_lib.merge_shards(k, [p[k] for p in parts],
+                                           shapes[k])
+        return out
+    metrics = ranks[0][0]
+    if metrics != ranks[1][0]:
+        raise AssertionError(f"the model ranks' metrics differ: {metrics} "
+                             f"vs {ranks[1][0]}")
+    return (metrics, merge([r[1] for r in ranks], "weights"),
+            [merge([r[2][i] for r in ranks], "gradients")
+             for i in range(len(ranks[0][2]))], ranks[0][3])
+
+
+def phase12():
+    """Tensor parallel (the model axis of 2) on the one card. (a) phase
+    7's small model as 2 gloo ranks against one process, one
+    accumulation-2 step with dropout on and the clip firing: fp32 by phase
+    7's rule and loss and grad norm within 1e-6, bf16 (the tensor-core
+    flash kernels at the local heads) by phase 11's 2e-2 rule; the
+    replicated leaves bit-identical across the ranks. (b)
+    ``preset=retrieval`` through the CLI at ``mesh.num_model=2`` as 2 gloo
+    ranks: finite losses, the first against the same batch at model=1
+    (2e-2), the window's mean grad norm (``TP_NORM_TOL``) and the update's
+    cosine (``TP_UPDATE_COS``) against model=1's, the shard shapes, K1-K4 on
+    each rank, the gathered shards equal to ``final_model``, which
+    ``Embedder`` serves in one process; each rank's peak memory in each
+    micro-step of the window below the same micro-step's at model=1, and
+    its whole run's below the one-rank window's; device busy, the
+    collectives' share. (c) the CLI under NCCL, a card per rank, when
+    there are two cards."""
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    import torch
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        a = _phase12a(tmp)
+        b = _phase12b(tmp)
+        b["nccl"] = _phase12c(tmp, b)
+    return a, b
+
+
+def _phase12a(tmp):
+    secs = _torchrun(2, "tp-a", tmp, 300, phase=12)
+    ranks = [_dp_read(tmp, "tp-a", r) for r in range(2)]
+    launches = {}
+    for dtype, want_kernels, tol in (
+            ("float32", {"flash_rel_fwd", "flash_rel_bwd"}, 1e-6),
+            ("bfloat16", {"flash_rel_fwd_mma", "flash_rel_bwd_mma"}, 2e-2)):
+        cfg = _tp_small_cfg(dtype)
+        model = _small_model(cfg)
+        got = _merge_run([r[dtype] for r in ranks], model)
+        one = _step_run(cfg, model, _small_batches(cfg), "cuda",
+                        dropout=True)
+        launches[dtype] = got[3]
+        if set(got[3]) != want_kernels or set(one[3]) != want_kernels:
+            raise AssertionError(f"{dtype} launched {got[3]} at model=2, "
+                                 f"{one[3]} in one process")
+        errs = {f"{key}_{i}": abs(g[key] - o[key]) / abs(o[key])
+                for key in ("loss", "grad_norm")
+                for i, (g, o) in enumerate(zip(got[0], one[0]))}
+        norms = [m["grad_norm"] for m in one[0]]
+        if max(errs.values()) > tol or min(norms) <= TP_CLIP:
+            raise AssertionError(f"{dtype}: rel errs {errs} (tol {tol}), "
+                                 f"grad norms {norms} (clip {TP_CLIP})")
+        if dtype == "float32":
+            out = _hold_step(cfg, got, one, model, "2 TP ranks", "1 process")
+            text, data = out["text"], out["data"]
+        else:
+            # Adam's first step moves a weight by ≤ lr: a sign flipped by
+            # bf16 rounding is 2·lr, and rounding may add to that
+            worst = max((got[1][k] - v).abs().max().item()
+                        for k, v in one[1].items())
+            if worst > 2.5 * cfg.optimizer.learning_rate:
+                raise AssertionError(f"bf16 weights differ by {worst}")
+            text = (f"updated params max diff {worst:.1e} (bound 2.5·lr)")
+            data = {"param_max_diff": worst}
+        log(12, f"(a) small {dtype} model at model=2 as 2 gloo ranks on the "
+                f"card vs 1 process, accumulation 2, dropout on, clip "
+                f"{TP_CLIP} below grad norms {[round(n, 3) for n in norms]}: "
+                f"loss/grad-norm rel err {max(errs.values()):.1e} (tol "
+                f"{tol:g}); {text}; replicated leaves bit-identical across "
+                f"the ranks; rank 0 flash launches {got[3]}; torchrun "
+                f"{secs:.1f} s",
+            dtype=dtype, rel_errs=errs, launches=got[3], **data,
+            tp=got[0], one=one[0], seconds=secs)
+    return launches
+
+
+def _phase12b(tmp):
+    secs = _torchrun(2, "tp-b", tmp, 900, phase=12)
+    ranks = [_dp_read(tmp, "tp-b", r) for r in range(2)]
+    r0, ref = ranks[0], ranks[0]["reference"]
+    losses = r0["losses"]
+    first = abs(losses[0] - ref["loss"])
+    ref_norm = sum(ref["grad_norms"]) / len(ref["grad_norms"])
+    norm_err = abs(r0["grad_norm"] - ref_norm) / ref_norm
+    update = r0["update"]
+    # log the readings first: a failed check still leaves them
+    log(12, f"(b) against model=1 on the same window: first loss "
+            f"{losses[0]:.6f} vs {ref['loss']:.6f}, diff {first:.1e} (tol "
+            f"2e-2); mean grad norm {r0['grad_norm']:.6f} vs "
+            f"{ref_norm:.6f}, rel {norm_err:.2e} (tol {TP_NORM_TOL:g}); "
+            f"the update's cosine over {update['leaves']} trainable leaves "
+            f"{update['cos']:.6f} (min {TP_UPDATE_COS:g}), lowest leaf "
+            f"{update['worst_leaf']} {update['worst_leaf_cos']:.4f}",
+        first_loss_diff=first, grad_norm=r0["grad_norm"],
+        ref_grad_norms=ref["grad_norms"], grad_norm_rel_err=norm_err,
+        update=update)
+    if not all(math.isfinite(x) for x in losses) or first > 2e-2 or \
+            ranks[1]["losses"] != losses:
+        raise AssertionError(f"model=2 losses {losses} / "
+                             f"{ranks[1]['losses']} vs model=1 first "
+                             f"{ref['loss']}")
+    if norm_err > TP_NORM_TOL or not update["cos"] >= TP_UPDATE_COS:
+        raise AssertionError(f"model=2 grad norm rel err {norm_err} (tol "
+                             f"{TP_NORM_TOL}), update cosine "
+                             f"{update['cos']} (min {TP_UPDATE_COS})")
+    if r0["launches"] != ranks[1]["launches"]:
+        raise AssertionError(f"launches differ: {r0['launches']} vs "
+                             f"{ranks[1]['launches']}")
+    # each micro-step of the window against the same one at model=1, and
+    # each rank's whole run (the test and retrieval phases included)
+    # against the one-rank window's peak
+    peaks = [r["step"]["peaks_gib"] for r in ranks]
+    run_peaks = [r["run_peak_gib"] for r in ranks]
+    if any(p >= q for rank in peaks for p, q in zip(rank,
+                                                    ref["peaks_gib"])) or \
+            max(run_peaks) >= ref["peak_gib"]:
+        raise AssertionError(f"peaks a rank {peaks} GiB (whole run "
+                             f"{run_peaks}) are not below the one-rank "
+                             f"{ref['peaks_gib']} GiB")
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch.inference.embed import Embedder
+    emb = Embedder.from_checkpoint(os.path.join(tmp, "run", "final_model"),
+                                   device="cuda")
+    e = emb.embed_audios([_clip(6.0, 31)])
+    t = emb.embed_texts(["uma frase curta"])
+    norms = [float(np.linalg.norm(x[0])) for x in (e, t)]
+    if e.shape != (1, 768) or not np.isfinite(e).all() or \
+            max(abs(n - 1) for n in norms) > 1e-3:
+        raise AssertionError(f"final_model embeddings {e.shape} {norms}")
+    del emb
+    torch.cuda.empty_cache()
+    log(12, f"(b) preset=retrieval through the CLI at mesh.num_model=2 as 2 "
+            f"gloo ranks on the card: {r0['micro']} micro-steps of 16 at "
+            f"{TP_BUCKET} samples ({r0['updates']} update(s)), losses "
+            f"{[round(x, 4) for x in losses]} (finite, equal on both "
+            f"ranks), the grad norm and the update as model=1's (above); "
+            f"{r0['split']} split leaves at 1/2 of their rows or columns "
+            f"on each rank (the vocabulary padded to {r0['vocab_rows']} "
+            f"rows a rank); launches per rank {r0['launches']}; final_model "
+            f"equal to the ranks' gathered shards ({r0['compared']} "
+            f"leaves), served by Embedder in one process (norms "
+            f"{norms[0]:.6f}, {norms[1]:.6f}); torchrun {secs:.1f} s",
+        losses=losses, reference=ref, first_loss_diff=first,
+        launches=r0["launches"], micro=r0["micro"], seconds=secs)
+    for r, rank in enumerate(ranks):
+        st = rank["step"]
+        log(12, f"(b) rank {r} at {TP_BUCKET} samples (B=16), a fresh "
+                f"optimizer's window, accumulating then updating: peak "
+                f"device memory {st['peaks_gib'][0]:.3f} / "
+                f"{st['peaks_gib'][1]:.3f} GiB vs {ref['peaks_gib'][0]:.3f} "
+                f"/ {ref['peaks_gib'][1]:.3f} GiB at model=1 (the same "
+                f"window, rank 0 before the run); the whole run's peak "
+                f"{rank['run_peak_gib']:.3f} GiB; device busy of an "
+                f"accumulating micro-step "
+                f"{st['device_busy_ms']:.1f} ms under the profiler: kernels "
+                f"{st['kernel_ms']:.1f} ms, the gloo collectives' "
+                f"host↔device copies {st['copy_ms']:.1f} ms (the two ranks "
+                f"share the card); {st['collectives']} collectives "
+                f"{st['collective_s'] * 1e3:.0f} ms host clock (each after "
+                f"a device sync, in an updating micro-step of "
+                f"{st['synced_step_s'] * 1e3:.0f} ms); an accumulating "
+                f"micro-step's host clock {st['step_ms']:.0f} ms",
+            rank=r, **st, run_peak_gib=rank["run_peak_gib"],
+            one_rank_peaks_gib=ref["peaks_gib"])
+    return {"launches": r0["launches"], "losses": losses, "peak_gib": peaks,
+            "run_peak_gib": run_peaks, "one_rank_peaks_gib": ref["peaks_gib"],
+            "steps": [r["step"] for r in ranks]}
+
+
+def _phase12c(tmp, b=None):
+    """(c): the CLI at model=2 under NCCL, a card per rank, where there are
+    two cards (data 2 × model 2 where there are four): K1-K4 on each rank,
+    its losses against (b)'s (the same configuration and batches over gloo
+    on one card, 2e-2)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(12, f"(c) did not run: NCCL needs a card per rank and this "
+                f"machine has one card (torch.cuda.device_count() = {n}); "
+                "(a) and (b) ran over gloo", ran=False, device_count=n)
+        return None
+    world = 4 if n >= 4 else 2
+    secs = _torchrun(world, "tp-c", tmp, 900, phase=12)
+    ranks = [_dp_read(tmp, "tp-c", r) for r in range(world)]
+    losses = ranks[0]["losses"]
+    diff = None if b is None else abs(losses[0] - b["losses"][0])
+    if not all(math.isfinite(x) for x in losses) or \
+            any(r["losses"] != losses for r in ranks) or \
+            (diff is not None and diff > 2e-2):
+        raise AssertionError(f"(c) losses {[r['losses'] for r in ranks]}, "
+                             f"(b) {None if b is None else b['losses']}")
+    log(12, f"(c) the CLI at data={world // 2} × model=2 under NCCL, a card "
+            f"per rank ({n} cards): losses {[round(x, 4) for x in losses]}, "
+            f"equal on every rank; first vs (b)'s over gloo: "
+            f"{'not run' if diff is None else f'{diff:.1e} (tol 2e-2)'}; "
+            f"launches per rank {ranks[0]['launches']}; torchrun "
+            f"{secs:.1f} s", ran=True, device_count=n, losses=losses,
+        launches=ranks[0]["launches"], seconds=secs)
+    return ranks[0]
+
+
+def _tp_worker_c(out):
+    """(c): the CLI at ``mesh.num_model=2`` on the card of this rank's
+    ``LOCAL_RANK``, under the NCCL group the CLI joins, K1-K4 counted."""
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    run = os.path.join(out, "nccl")
+    fk.log_mel.launches = 0
+    fk.normalize_and_stack.launches = 0
+    fa.LAUNCHES.clear()
+    res = cli.main(["device=cuda", "mesh.num_model=2"] + _tp_argv(run))
+    torch.cuda.synchronize()
+    mesh = res["state"].mesh
+    text = open(os.path.join(run, "training.log")).read() \
+        if mesh.rank == 0 else ""
+    if mesh.rank == 0 and not (
+            "Tensor parallel: 2 rank(s) a data row over nccl" in text and
+            f"Data parallel: {mesh.data} rank(s) over nccl" in text):
+        raise AssertionError("(c) the run did not take the NCCL mesh")
+    losses = [s["loss"] for s in res["step_log"]]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"(c) losses {losses}")
+    return {"losses": losses,
+            "launches": {"log_mel": fk.log_mel.launches,
+                         "log_mel_normalize": fk.normalize_and_stack.launches,
+                         **{k: fa.LAUNCHES[k] for k in FLASH_KERNELS}}}
+
+
+def _tp_worker_b(out, ref):
+    """(b): both ranks run the CLI at ``mesh.num_model=2``, K1-K4 counted
+    from zero over the run, and check their shards; the gathered final
+    weights against ``final_model``; one warm micro-step profiled. ``ref``:
+    rank 0's step at model=1 (``_tp_reference``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from speech_transcript_embeddings_torch import checkpoints
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        DualEncoderModel,
+    )
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
+    from speech_transcript_embeddings_torch.training import (
+        optimizer as opt_lib,
+    )
+    # two ranks share card 0: the loop takes the card of LOCAL_RANK
+    os.environ["LOCAL_RANK"] = "0"
+    torch.cuda.set_device(0)
+    run = os.path.join(out, "run")
+    rank = dist.get_rank()
+    fk.log_mel.launches = 0
+    fk.log_mel.launches_by_frames.clear()
+    fk.normalize_and_stack.launches = 0
+    fa.LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    res = cli.main(["device=cuda", "mesh.num_model=2"] + _tp_argv(run))
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {"log_mel": fk.log_mel.launches,
+                "log_mel_normalize": fk.normalize_and_stack.launches,
+                **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+    cfg, state, ep = res["cfg"], res["state"], res["epochs"][0]
+    mesh = state.mesh
+    # the whole model's counts, from the one-process model on meta
+    with torch.device("meta"):
+        whole = DualEncoderModel(cfg.model, torch.float32)
+    labels = opt_lib.param_labels(whole, cfg.freeze, cfg.model)
+    want_n = (sum(p.numel() for p in whole.parameters()),
+              sum(p.numel() for k, p in whole.named_parameters()
+                  if labels[k] != opt_lib.FROZEN))
+    del whole
+    if (mesh.data, mesh.model) != (1, 2) or \
+            (res["n_params"], res["n_trainable"]) != want_n:
+        raise AssertionError(f"mesh {mesh}, {res['n_params']} params, "
+                             f"{res['n_trainable']} trainable, want {want_n}")
+    micro = ep["train_batches"]
+    forwards = micro + ep["eval_batches"] + res["test_batches"] + \
+        res["retrieval_batches"]
+    layers = cfg.model.audio.num_layers
+    want = {"flash_rel_bwd_mma": layers * micro,
+            "flash_rel_fwd_mma": layers * forwards,
+            "flash_rel_fwd": 0, "flash_rel_bwd": 0,
+            "log_mel": forwards, "log_mel_normalize": forwards}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    shapes = state.model.full_shapes()
+    split, vocab_rows = 0, None
+    for k, p in state.model.named_parameters():
+        dim = mesh_lib.shard_dim(k)
+        whole = list(shapes[k])
+        if dim is not None:
+            whole[dim] = -(-whole[dim] // 2)
+            split += 1
+            if k.endswith("word_embeddings.weight"):
+                vocab_rows = whole[dim]
+        if tuple(p.shape) != tuple(whole):
+            raise AssertionError(f"{k}: {tuple(p.shape)} on rank {rank}")
+    gathered = mesh_lib.gather_state(state.model.state_dict(), mesh, shapes)
+    compared, update = 0, None
+    if rank == 0:
+        saved = checkpoints.load_stored_state(os.path.join(run,
+                                                           "final_model"))
+        if set(saved) != set(gathered):
+            raise AssertionError("final_model holds other leaves")
+        for k, v in saved.items():
+            if not torch.equal(v, gathered[k]):
+                raise AssertionError(f"final_model {k} is not the gathered "
+                                     "shards")
+            compared += 1
+        update = _update_cosines(gathered, ref.pop("before"),
+                                 ref.pop("update"))
+    del gathered
+    losses = [s["loss"] for s in res["step_log"]]
+    if len(losses) != micro or not np.isfinite(losses).all():
+        raise AssertionError(f"micro-step losses {losses}")
+    step = _tp_profile_micro_step(res)
+    return {"reference": ref, "losses": losses, "micro": micro,
+            "updates": state.optimizer.count, "launches": launches,
+            "split": split, "vocab_rows": vocab_rows, "compared": compared,
+            "grad_norm": ep["train_metrics"]["grad_norm"], "update": update,
+            "run_peak_gib": run_peak, "step": step}
+
+
+def _update_cosines(after, before, want):
+    """The cosine between the update a run made (``after - before``, each
+    trainable leaf) and ``want``'s, over all of them (float64 sums), and
+    the leaf where it is lowest."""
+    import torch
+    dot = got_sq = want_sq = 0.0
+    worst = (2.0, None)
+    for k, w in want.items():
+        d = (after[k].float() - before[k]).flatten().double()
+        w = w.flatten().double()
+        terms = (torch.dot(d, w).item(), torch.dot(d, d).item(),
+                 torch.dot(w, w).item())
+        dot, got_sq, want_sq = (a + b for a, b in
+                                zip((dot, got_sq, want_sq), terms))
+        if terms[1] and terms[2]:
+            worst = min(worst, (terms[0] / math.sqrt(terms[1] * terms[2]),
+                                k))
+    return {"cos": dot / math.sqrt(got_sq * want_sq), "worst_leaf": worst[1],
+            "worst_leaf_cos": worst[0], "leaves": len(want)}
+
+
+def _tp_batches(cfg):
+    """The run's first accumulation window: its first two train batches."""
+    from speech_transcript_embeddings_torch.data import (
+        DataPipeline, make_source, resolve_tokenizer,
+    )
+    pipeline = DataPipeline(cfg.data, resolve_tokenizer(cfg),
+                            seed=cfg.train.seed)
+    batches = pipeline.epoch_batches(
+        make_source(cfg.data, seed=cfg.train.seed), "train", 1)
+    return [next(batches) for _ in range(cfg.train.accumulation_steps)]
+
+
+def _tp_window_peaks(cfg, state, frontend, batches):
+    """Peak device memory (GiB) of each micro-step of one accumulation
+    window from a fresh optimizer: the accumulating one, then the update."""
+    import torch
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    peaks = []
+    for batch in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts.train_step(cfg, state, frontend, batch, None)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    return peaks
+
+
+def _tp_reference(out):
+    """(b)'s first accumulation window at model=1 on the card, in one
+    process, as the CLI takes it (seed-0 weights, its first two train
+    batches, its one-update schedule): each micro-step's loss and grad
+    norm, and the trainable weights before and the update on the host;
+    then the window's per-micro-step peaks from a fresh optimizer (its
+    kernels warm), as ``_tp_profile_micro_step`` takes them at model=2."""
+    import torch
+    from speech_transcript_embeddings_torch import train as cli
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import make_frontend
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    cfg = cli.build_config(_tp_argv(os.path.join(out, "run")))
+    model = init_model(cfg.model, torch.Generator("cuda").manual_seed(
+        cfg.train.seed), "cuda", train=True)
+    state = ts.create_train_state(model, cfg, total_steps=TP_UPDATES)
+    before = {k: p.detach().to("cpu", copy=True)
+              for k, p in state.trainable.items()}
+    frontend = make_frontend(cfg.model.frontend).to("cuda")
+    batches = _tp_batches(cfg)
+    metrics = [ts.train_step(cfg, state, frontend, b, None) for b in batches]
+    update = {k: p.detach().cpu() - before[k]
+              for k, p in state.trainable.items()}
+    del state
+    peaks = _tp_window_peaks(cfg, ts.create_train_state(
+        model, cfg, total_steps=TP_UPDATES), frontend, batches)
+    del model
+    torch.cuda.empty_cache()
+    return {"loss": float(metrics[0]["loss"]),
+            "grad_norms": [float(m["grad_norm"]) for m in metrics],
+            "peaks_gib": peaks, "peak_gib": max(peaks),
+            "samples": int(batches[0]["waveform"].shape[1]),
+            "before": before, "update": update}
+
+
+def _tp_profile_micro_step(res):
+    """A finished model=2 run's model with a fresh optimizer (the run
+    dropped its moments; its kernels are warm) on the run's first window:
+    each micro-step's peak memory (accumulate, update: as
+    ``_tp_reference`` takes them at model=1); then an accumulating
+    micro-step's host clock; an updating one with a device sync before
+    each collective, timed on the host clock (the gloo collectives' time);
+    and an accumulating one under torch.profiler (device busy; the
+    host↔device copies, which are the gloo collectives' on the card)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from speech_transcript_embeddings_torch.training import train_step as ts
+    cfg = res["cfg"]
+    state = ts.create_train_state(res["state"].model, cfg,
+                                  total_steps=TP_UPDATES,
+                                  mesh=res["state"].mesh)
+    batches = _tp_batches(cfg)
+    peaks = _tp_window_peaks(cfg, state, res["frontend"], batches)
+    step = lambda: ts.train_step(cfg, state, res["frontend"],  # noqa
+                                 batches[0], None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    spent = []
+    plain = dist.all_reduce
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = plain(*args, **kw)
+        spent.append(time.perf_counter() - t)
+        return out
+    dist.all_reduce = timed
+    try:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        synced = time.perf_counter() - t0
+    finally:
+        dist.all_reduce = plain
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # gloo's device rows: its host↔device copies, and "gloo:" spans that
+    # repeat the copies' time (left out, or they would count twice)
+    rows = [r for r in _device_rows(prof) if not r[1].startswith("gloo:")]
+    copy_ms = sum(ms for ms, k, _ in rows if "memcpy" in k.lower())
+    busy = sum(r[0] for r in rows)
+    del state
+    return dict(samples=int(batches[0]["waveform"].shape[1]),
+                peaks_gib=peaks, peak_gib=max(peaks),
+                step_ms=step_ms, device_busy_ms=busy, copy_ms=copy_ms,
+                kernel_ms=busy - copy_ms,
+                collectives=len(spent), collective_s=sum(spent),
+                synced_step_s=synced,
+                top=[{"kernel": k, "calls": c, "ms": ms}
+                     for ms, k, c in rows[:12]])
+
+
 def _profile_micro_step(phase, res):
     """One warm micro-step of a finished run's model at its longest train
     bucket, timed on the host clock and under torch.profiler (after the
@@ -2448,10 +3018,13 @@ def main():
     flagship, flagship_step, _ = phase9()
     converted = phase10()
     dp_fp32, dp, dp2 = phase11()
+    tp_small, tp = phase12()
     paths = {"serve": serve, "serve_int8": serve_int8, "train": train,
              "flagship_train": flagship, "converted_train": converted,
-             "dp_train": dp["launches"], "serve_fp32": serve_fp32,
-             "train_fp32": train_fp32, "dp_fp32": dp_fp32}
+             "dp_train": dp["launches"], "tp_train": tp["launches"],
+             "tp_bf16": tp_small["bfloat16"], "serve_fp32": serve_fp32,
+             "train_fp32": train_fp32, "dp_fp32": dp_fp32,
+             "tp_fp32": tp_small["float32"]}
     by_path = {name: {p: c.get(name, 0) for p, c in paths.items()}
                for name in train}
     at = MEL_SHAPES[-1]
@@ -2507,9 +3080,9 @@ def main():
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",
-                     "converted_train", "dp_train") if k["name"] not in (
-            "flash_rel_fwd", "flash_rel_bwd") else ("serve_fp32",
-                                                    "train_fp32", "dp_fp32")
+                     "converted_train", "dp_train", "tp_train", "tp_bf16") \
+            if k["name"] not in ("flash_rel_fwd", "flash_rel_bwd") else (
+                "serve_fp32", "train_fp32", "dp_fp32", "tp_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} was not launched on its path")
@@ -2532,7 +3105,8 @@ def main():
                    "flagship_micro_step": flagship_step,
                    "dp_micro_step_world_1": dp["step"],
                    "dp_all_reduce_world_1": dp["all_reduce"],
-                   "dp_two_rank_gloo": dp2, **RECORD},
+                   "dp_two_rank_gloo": dp2, "tp_two_rank_gloo": tp,
+                   **RECORD},
                   f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,13 @@ JAX package's orbax checkpoints are not read here: bring one across with
 ``bridge.py`` in a process that has JAX. Under data parallel training every
 rank holds the same weights and optimizer state: ``save_checkpoint`` writes
 on rank 0 while the other ranks wait at a barrier, and every rank restores
-onto its own device.
+onto its own device. Under tensor parallel a checkpoint stays in the
+one-process layout: the ranks of data row 0 gather each split leaf (the
+parameters, μ, ν and the accumulator) one at a time onto the host before
+rank 0 writes, and a restore (``restore_checkpoint``, ``load_into`` with a
+mesh) reads the whole state on the host and keeps each rank's shard. So a
+tensor-parallel ``final_model`` serves as it is, and a ``latest`` resumes
+at another ``mesh.num_model``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
 from speech_transcript_embeddings_torch.parallel import collectives
+from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
 
 FORMAT_VERSION = 1
 KIND = "torch_params"
@@ -78,6 +85,14 @@ def _write(path: str, meta: dict, files: dict) -> int:
     return size
 
 
+def _whole(shards: dict, mesh: Optional[mesh_lib.Mesh], shapes: dict) -> dict:
+    """A state of this rank's shards in the one-process layout on the host
+    (a collective of the model axis), or as it is without one."""
+    if mesh is None or mesh.model == 1:
+        return shards
+    return mesh_lib.gather_state(shards, mesh, shapes)
+
+
 def save_params_checkpoint(path: str, model: DualEncoderModel,
                            cfg: ExperimentConfig,
                            info: Optional[dict] = None) -> int:
@@ -93,19 +108,29 @@ def save_checkpoint(path: str, state, cfg: ExperimentConfig, epoch: int,
     """A training checkpoint of ``state`` (a ``TrainState``) after
     ``epoch``; ``params_only`` leaves out ``optimizer.pt`` (the best and
     final checkpoints, which are only evaluated or served). Under a process
-    group a collective: rank 0 writes, and every rank returns once it has.
-    → bytes written (0 on the other ranks)."""
+    group a collective of ``state.mesh``'s ranks: rank 0 writes (the ranks
+    of its data row gather the shards first under tensor parallel), and
+    every rank returns once it has. → bytes written (0 on the other
+    ranks)."""
     size = 0
-    if collectives.rank() == 0:
-        meta = {"format_version": FORMAT_VERSION, "kind": KIND,
-                "epoch": epoch, "params_only": params_only,
-                "metrics": metrics or {}, "config": json.loads(cfg.to_json())}
-        files = {"model.pt": state.model.state_dict()}
+    mesh = state.mesh
+    if mesh is None or mesh.data_index == 0:
+        shapes = state.model.full_shapes()
+        files = {"model.pt": _whole(state.model.state_dict(), mesh, shapes)}
         if not params_only:
-            files["optimizer.pt"] = {
-                "step": state.step, "optimizer": state.optimizer.state_dict()}
-        size = _write(path, meta, files)
-    collectives.barrier()
+            opt = state.optimizer.state_dict()
+            for key in ("mu", "nu", "acc"):
+                if opt[key] is not None:
+                    opt[key] = _whole(opt[key], mesh, shapes)
+            files["optimizer.pt"] = {"step": state.step, "optimizer": opt}
+        if collectives.rank() == 0:
+            meta = {"format_version": FORMAT_VERSION, "kind": KIND,
+                    "epoch": epoch, "params_only": params_only,
+                    "metrics": metrics or {},
+                    "config": json.loads(cfg.to_json())}
+            size = _write(path, meta, files)
+        del files
+    collectives.barrier(None if mesh is None else mesh.active_group)
     return size
 
 
@@ -113,25 +138,38 @@ def save_checkpoint(path: str, state, cfg: ExperimentConfig, epoch: int,
 def restore_checkpoint(path: str, state):
     """Load a full training checkpoint into ``state`` in place (weights in
     the dtypes ``state.model`` stores them in, the optimizer's state, the
-    micro-step count), on the device ``state.model`` lives on → ``state``. A params-only checkpoint has no
-    optimizer state to resume from and is refused."""
+    micro-step count), on the device ``state.model`` lives on → ``state``.
+    Under tensor parallel each rank keeps its shards of the one-process
+    state, read on the host. A params-only checkpoint has no optimizer
+    state to resume from and is refused."""
     if load_metadata(path).get("params_only", True):
         raise ValueError(
             f"{path} is a params-only checkpoint (no optimizer state): load "
             "it with load_into / load_checkpoint, or resume from the "
             "'latest' checkpoint instead")
-    load_into(path, state.model)
+    mesh = state.mesh
+    load_into(path, state.model, mesh)
+    split = mesh is not None and mesh.model > 1
     device = next(state.model.parameters()).device
     saved = torch.load(os.path.join(path, "optimizer.pt"),
-                       map_location=device, weights_only=True)
-    state.optimizer.load_state_dict(saved["optimizer"])
+                       map_location="cpu" if split else device,
+                       weights_only=True, mmap=split)
+    opt = saved["optimizer"]
+    if split:
+        for key in ("mu", "nu", "acc"):
+            if opt[key] is not None:
+                opt[key] = mesh_lib.shard_state(opt[key], mesh)
+    state.optimizer.load_state_dict(opt)
     state.step = int(saved["step"])
     return state
 
 
-def load_checkpoint(path: str, device="cpu"
+def load_checkpoint(path: str, device="cpu",
+                    mesh: Optional[mesh_lib.Mesh] = None
                     ) -> Tuple[ExperimentConfig, DualEncoderModel]:
-    """→ (config, eval-mode model on ``device`` with gradients off)."""
+    """→ (config, eval-mode model on ``device`` with gradients off); under
+    tensor parallel (``mesh``) each rank's shards of it, read on the host,
+    so no rank holds the whole model."""
     meta = load_metadata(path)
     if meta.get("kind") != KIND:
         raise ValueError(
@@ -141,10 +179,14 @@ def load_checkpoint(path: str, device="cpu"
             "JAX package (orbax) checkpoint with "
             "speech_transcript_embeddings_torch.bridge")
     cfg = ExperimentConfig.from_json(json.dumps(meta["config"]))
+    axis = None if mesh is None else mesh.model_axis()
     with torch.device("meta"):
-        model = DualEncoderModel(cfg.model)
-    model.load_state_dict(_state_for(path, model, device), strict=True,
-                          assign=True)
+        model = DualEncoderModel(cfg.model, axis=axis)
+    if axis is None:
+        model.load_state_dict(_state_for(path, model, device), strict=True,
+                              assign=True)
+    else:
+        load_into(path, model.to_empty(device=device), mesh)
     return cfg, model.to(device).eval().requires_grad_(False)
 
 
@@ -155,12 +197,15 @@ def load_stored_state(path: str) -> dict:
                       weights_only=True, mmap=True)
 
 
+def _check_kind(path: str) -> None:
+    kind = load_metadata(path).get("kind")
+    if kind != KIND:
+        raise ValueError(f"{path}: checkpoint kind {kind!r} is not {KIND!r}")
+
+
 def _state_for(path: str, model: torch.nn.Module, device) -> dict:
     """``model.pt`` with every tensor cast to ``model``'s parameter dtype."""
-    meta = load_metadata(path)
-    if meta.get("kind") != KIND:
-        raise ValueError(f"{path}: checkpoint kind {meta.get('kind')!r} is "
-                         f"not {KIND!r}")
+    _check_kind(path)
     state = torch.load(os.path.join(path, "model.pt"), map_location=device,
                        weights_only=True)
     target = dict(model.named_parameters())
@@ -169,9 +214,21 @@ def _state_for(path: str, model: torch.nn.Module, device) -> dict:
 
 
 @torch.no_grad()
-def load_into(path: str, model: DualEncoderModel) -> DualEncoderModel:
+def load_into(path: str, model: DualEncoderModel,
+              mesh: Optional[mesh_lib.Mesh] = None) -> DualEncoderModel:
     """Copy a port checkpoint's weights into ``model`` in place, in the
-    dtypes ``model`` stores them in, mapped straight to its device."""
-    device = next(model.parameters()).device
-    model.load_state_dict(_state_for(path, model, device), strict=True)
+    dtypes ``model`` stores them in, mapped straight to its device; under
+    tensor parallel (``mesh``) read on the host, and each rank keeps its
+    shards."""
+    if mesh is None or mesh.model == 1:
+        device = next(model.parameters()).device
+        model.load_state_dict(_state_for(path, model, device), strict=True)
+        return model
+    _check_kind(path)
+    target = dict(model.named_parameters())
+    shards = mesh_lib.shard_state(load_stored_state(path), mesh)
+    if set(shards) != set(target):
+        raise ValueError(f"{path} holds other parameters than the model")
+    for k, v in shards.items():
+        target[k].copy_(v)
     return model

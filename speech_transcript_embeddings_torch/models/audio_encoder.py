@@ -25,6 +25,16 @@ same sizes). Every ``save_*`` policy also keeps the flash forward's
 (out, lse) across the replay (``flash_attention(residuals=...)``).
 ``scan_bottom`` is not ported: the bridge unstacks scanned parameters into
 ``layer_i``.
+
+Tensor parallel (``axis``, a ``ModelAxis``): each FFN splits its
+intermediate features, the attention its heads (the flash kernels run at
+the local head count; the replicated distance table enters through
+``copy_to_model``, so its gradient, each rank's heads' share, is summed),
+the conv module its GLU channels (a rank holds ``[a_r | g_r]`` of
+``pointwise1``), its depthwise channels and the ``depthwise_norm`` over
+them; the feature projection and the norms stay replicated, as JAX's
+rules leave them. The collectives replay with their regions under remat,
+identically on every rank.
 """
 
 from __future__ import annotations
@@ -38,10 +48,14 @@ from torch.utils.checkpoint import checkpoint
 
 from speech_transcript_embeddings_torch.config import AudioEncoderConfig
 from speech_transcript_embeddings_torch.models.layers import (
-    Dense, LayerNorm, dropout, masked_probs, replayable,
+    Dense, LayerNorm, column_dense, dropout, layer_norm, masked_probs,
+    replayable, row_dense,
 )
 from speech_transcript_embeddings_torch.ops.flash_attention import (
     flash_attention,
+)
+from speech_transcript_embeddings_torch.parallel.collectives import (
+    ModelAxis, copy_to_model,
 )
 
 # the stages of a conformer block, each named by the activation it ends with
@@ -107,18 +121,21 @@ def spec_augment_apply(x, masked_embed, attention_mask, cfg, u):
 
 class AudioFeedForward(nn.Module):
     def __init__(self, cfg: AudioEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         self.cfg = cfg
-        self.intermediate = Dense(cfg.hidden_size, cfg.intermediate_size,
-                                  dtype=dtype, param_dtype=param_dtype)
-        self.output = Dense(cfg.intermediate_size, cfg.hidden_size, dtype=dtype,
-                            param_dtype=param_dtype)
+        self.axis = axis
+        self.intermediate = column_dense(axis, cfg.hidden_size,
+                                         cfg.intermediate_size, dtype=dtype,
+                                         param_dtype=param_dtype)
+        self.output = row_dense(axis, cfg.intermediate_size, cfg.hidden_size,
+                                dtype=dtype, param_dtype=param_dtype)
 
     def forward(self, x, generator=None):
         c = self.cfg
-        h = dropout(swish(self.intermediate(x)), c.activation_dropout,
-                    generator)
+        h = swish(self.intermediate(copy_to_model(x, self.axis)))
+        h = dropout(h, c.activation_dropout, generator, self.axis)
         return dropout(self.output(h), c.hidden_dropout, generator)
 
 
@@ -127,12 +144,17 @@ class RelPositionAttention(nn.Module):
     ``scores = (q·kᵀ + q·E[clip(j − i, −L, R) + L]ᵀ) / √hd``."""
 
     def __init__(self, cfg: AudioEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         c = self.cfg = cfg
         h = c.hidden_size
-        dense = lambda: Dense(h, h, dtype=dtype, param_dtype=param_dtype)
-        self.query, self.key, self.value, self.out = (dense() for _ in range(4))
+        self.axis = axis
+        self.num_heads = axis.part(c.num_heads) if axis else c.num_heads
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.query, self.key, self.value = (column_dense(axis, h, h, **kw)
+                                            for _ in range(3))
+        self.out = row_dense(axis, h, h, **kw)
         num_pos = c.left_max_rel_pos + c.right_max_rel_pos + 1
         self.distance_embedding = nn.Parameter(
             torch.empty(num_pos, c.head_dim, dtype=torch.float32))
@@ -142,9 +164,9 @@ class RelPositionAttention(nn.Module):
         return self.attend(*self.project(x), mask, generator)
 
     def project(self, x: torch.Tensor):
-        """→ q, k, v ``[B, T, num_heads, head_dim]``."""
-        c = self.cfg
-        shape = (*x.shape[:2], c.num_heads, c.head_dim)
+        """→ q, k, v ``[B, T, num_heads, head_dim]`` (this rank's heads)."""
+        shape = (*x.shape[:2], self.num_heads, self.cfg.head_dim)
+        x = copy_to_model(x, self.axis)
         return (self.query(x).reshape(shape), self.key(x).reshape(shape),
                 self.value(x).reshape(shape))
 
@@ -156,7 +178,7 @@ class RelPositionAttention(nn.Module):
         c = self.cfg
         b, t, nh, hd = q.shape
         h = nh * hd
-        dist_emb = self.distance_embedding
+        dist_emb = copy_to_model(self.distance_embedding, self.axis)
 
         if c.use_flash_attention and (generator is None
                                       or c.attention_dropout == 0):
@@ -178,29 +200,32 @@ class RelPositionAttention(nn.Module):
         rel = dist_emb[distance + c.left_max_rel_pos].to(q.dtype)
         scores = (scores + torch.einsum("bqhd,qkd->bhqk", q, rel)) / (hd ** 0.5)
         probs = dropout(masked_probs(scores, mask), c.attention_dropout,
-                        generator)
+                        generator, self.axis, 1)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(probs.dtype))
         return self.out(out.reshape(b, t, h))
 
 
 class ConvModule(nn.Module):
     """Conformer convolution block with a causal depthwise conv
-    (``depthwise_kernel`` is ``[H, 1, K]``, Conv1d layout)."""
+    (``depthwise_kernel`` is ``[H, 1, K]``, Conv1d layout; this rank's
+    channels under tensor parallel)."""
 
     def __init__(self, cfg: AudioEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         c = self.cfg = cfg
         h = c.hidden_size
         self.dtype = dtype
+        self.axis = axis
+        kw = dict(use_bias=False, dtype=dtype, param_dtype=param_dtype)
         self.norm = LayerNorm(h, c.layer_norm_eps, dtype)
-        self.pointwise1 = Dense(h, 2 * h, use_bias=False, dtype=dtype,
-                                param_dtype=param_dtype)
-        self.depthwise_kernel = nn.Parameter(
-            torch.empty(h, 1, c.conv_kernel_size, dtype=torch.float32))
-        self.depthwise_norm = LayerNorm(h, c.layer_norm_eps, dtype)
-        self.pointwise2 = Dense(h, h, use_bias=False, dtype=dtype,
-                                param_dtype=param_dtype)
+        self.pointwise1 = column_dense(axis, h, 2 * h, **kw)
+        self.depthwise_kernel = nn.Parameter(torch.empty(
+            axis.part(h) if axis else h, 1, c.conv_kernel_size,
+            dtype=torch.float32))
+        self.depthwise_norm = layer_norm(axis, h, c.layer_norm_eps, dtype)
+        self.pointwise2 = row_dense(axis, h, h, **kw)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -208,28 +233,29 @@ class ConvModule(nn.Module):
         x = self.norm(x)
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
-        a, g = self.pointwise1(x).chunk(2, dim=-1)
+        a, g = self.pointwise1(copy_to_model(x, self.axis)).chunk(2, dim=-1)
         x = (a * torch.sigmoid(g)).transpose(1, 2)            # [B, H, T]
         x = F.conv1d(F.pad(x, (c.conv_kernel_size - 1, 0)),
                      self.depthwise_kernel.to(self.dtype),
-                     groups=c.hidden_size).transpose(1, 2)
+                     groups=self.depthwise_kernel.shape[0]).transpose(1, 2)
         h = swish(self.depthwise_norm(x))
         return dropout(self.pointwise2(h), c.conv_dropout, generator)
 
 
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: AudioEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         self.cfg = cfg
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.ffn1_norm = LayerNorm(h, eps, dtype)
-        self.ffn1 = AudioFeedForward(cfg, dtype, param_dtype)
+        self.ffn1 = AudioFeedForward(cfg, dtype, param_dtype, axis)
         self.attention_norm = LayerNorm(h, eps, dtype)
-        self.attention = RelPositionAttention(cfg, dtype, param_dtype)
-        self.conv = ConvModule(cfg, dtype, param_dtype)
+        self.attention = RelPositionAttention(cfg, dtype, param_dtype, axis)
+        self.conv = ConvModule(cfg, dtype, param_dtype, axis)
         self.ffn2_norm = LayerNorm(h, eps, dtype)
-        self.ffn2 = AudioFeedForward(cfg, dtype, param_dtype)
+        self.ffn2 = AudioFeedForward(cfg, dtype, param_dtype, axis)
         self.final_norm = LayerNorm(h, eps, dtype)
 
     def forward(self, x, mask, generator=None):
@@ -273,7 +299,7 @@ class AudioEncoder(nn.Module):
 
     def __init__(self, cfg: AudioEncoderConfig, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False):
+                 remat: bool = False, axis: Optional[ModelAxis] = None):
         super().__init__()
         if cfg.remat_policy not in REMAT_CUTS:
             raise ValueError(
@@ -290,7 +316,7 @@ class AudioEncoder(nn.Module):
                 torch.empty(cfg.hidden_size, dtype=torch.float32))
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}",
-                            ConformerBlock(cfg, dtype, param_dtype))
+                            ConformerBlock(cfg, dtype, param_dtype, axis))
 
     def forward(self, features: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,

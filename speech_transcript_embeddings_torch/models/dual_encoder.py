@@ -11,7 +11,11 @@ with the audio tiled against both for the fusion, and the word-alignment
 head (``heads.use_word_alignment``) over the clean transcript. The encoders
 run in ``cfg.dtype``; the heads run in fp32, as in the JAX model. A
 ``generator`` turns dropout and SpecAugment on (JAX's
-``deterministic=False``).
+``deterministic=False``). Built with a ``ModelAxis`` (tensor parallel), the
+model holds this rank's shard of each parameter that
+``parallel.mesh.shard_dim`` names (``init_model(axis=...)`` draws each
+whole tensor as one process does and keeps the shard); its outputs are the
+whole model's on every rank of the axis.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from speech_transcript_embeddings_torch.models.layers import (
     Dense, Embed, LayerNorm,
 )
 from speech_transcript_embeddings_torch.models.text_encoder import TextEncoder
+from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
+from speech_transcript_embeddings_torch.parallel.collectives import ModelAxis
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -62,21 +68,25 @@ class PosNegOutput(NamedTuple):
 class DualEncoderModel(nn.Module):
     """``param_dtype`` is where Dense and Embed weights are stored: None
     (serving) stores them in the compute dtype, ``torch.float32`` (training)
-    keeps them in fp32 and casts at each call, as JAX does."""
+    keeps them in fp32 and casts at each call, as JAX does. ``axis``: the
+    model axis of tensor parallel (None: the whole model)."""
 
     def __init__(self, cfg: ModelConfig,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         heads = cfg.heads
         self.cfg = cfg
+        self.param_dtype = param_dtype
+        self.axis = axis
         dtype = compute_dtype(cfg)
         self.text_encoder = TextEncoder(cfg.text, dtype, param_dtype,
-                                        remat=cfg.remat)
+                                        remat=cfg.remat, axis=axis)
         self.audio_encoder = AudioEncoder(cfg.audio, dtype, param_dtype,
-                                          remat=cfg.remat)
+                                          remat=cfg.remat, axis=axis)
         proj = lambda in_dim: EnhancedProjection(
             in_dim, heads.projection_dim, heads.projection_hidden_dim,
-            heads.activation, heads.dropout)
+            heads.activation, heads.dropout, axis)
         self.text_projection = proj(cfg.text.hidden_size)
         self.audio_projection = proj(cfg.audio.hidden_size)
         if heads.use_attentive_pooling:
@@ -87,9 +97,9 @@ class DualEncoderModel(nn.Module):
             self.text_seq_to_projection = Dense(cfg.text.hidden_size, d)
             self.audio_seq_to_projection = Dense(cfg.audio.hidden_size, d)
             self.text_to_audio_attention = CrossModalAttention(
-                d, heads.cross_modal_heads, heads.dropout)
+                d, heads.cross_modal_heads, heads.dropout, axis)
             self.audio_to_text_attention = CrossModalAttention(
-                d, heads.cross_modal_heads, heads.dropout)
+                d, heads.cross_modal_heads, heads.dropout, axis)
             self.text_fusion = Dense(2 * d, d)
             self.text_fusion_norm = LayerNorm(d, 1e-5)
             self.audio_fusion = Dense(2 * d, d)
@@ -97,7 +107,16 @@ class DualEncoderModel(nn.Module):
         if heads.use_word_alignment:
             self.word_level_alignment = WordLevelAlignment(
                 cfg.text.hidden_size, cfg.audio.hidden_size, d,
-                heads.alignment_heads, heads.dropout)
+                heads.alignment_heads, heads.dropout, axis)
+
+    def full_shapes(self) -> Dict[str, Tuple[int, ...]]:
+        """Each parameter's whole shape (its own without tensor
+        parallel)."""
+        if self.axis is None:
+            return {k: tuple(p.shape) for k, p in self.named_parameters()}
+        with torch.device("meta"):
+            whole = DualEncoderModel(self.cfg, self.param_dtype)
+        return {k: tuple(p.shape) for k, p in whole.named_parameters()}
 
     def encode_text(self, input_ids, attention_mask=None, generator=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -209,7 +228,8 @@ def _truncated_normal(shape, std, generator, device):
 
 @torch.no_grad()
 def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu",
-               *, train: bool = False) -> DualEncoderModel:
+               *, train: bool = False, axis: Optional[ModelAxis] = None
+               ) -> DualEncoderModel:
     """A seeded model on ``device`` (``generator`` must live there too),
     drawn from the distributions of the JAX package's initializers: Dense
     kernels lecun-normal (truncated normal, std 1/√fan_in), Embed tables
@@ -218,29 +238,41 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu",
     uniform[0, 1), biases 0, LayerNorm 1/0. ``train`` keeps Dense and Embed
     weights in fp32 and gradients on (the trainer then freezes its split);
     otherwise the model is the serving form: weights in the compute dtype,
-    eval mode, no gradients."""
+    eval mode, no gradients. With ``axis`` (tensor parallel) each tensor
+    is drawn whole, in the one-process order, and this rank keeps its
+    shard: the shard equals, bit for bit, that slice of the one-process
+    model from the same generator, and the device holds one whole tensor
+    at a time."""
     with torch.device(device):
-        model = DualEncoderModel(cfg, torch.float32 if train else None)
-    normal = lambda p, std: p.copy_(std * torch.randn(
-        p.shape, generator=generator, device=p.device))
-    for mod in model.modules():
+        model = DualEncoderModel(cfg, torch.float32 if train else None, axis)
+    shapes = model.full_shapes()
+
+    def put(name, p, draw):
+        """Fill ``p`` with its shard of ``draw(whole shape)``."""
+        whole = draw(shapes[name])
+        p.copy_(whole if axis is None else mesh_lib.shard_tensor(
+            name, whole, axis.size, axis.index))
+
+    normal = lambda std: lambda shape: std(shape) * torch.randn(
+        shape, generator=generator, device=device)
+    lecun = lambda fan_in: lambda shape: _truncated_normal(
+        shape, shape[fan_in] ** -0.5, generator, device)
+    for name, mod in model.named_modules():
+        at = f"{name}." if name else ""
         if isinstance(mod, Dense):
-            mod.weight.copy_(_truncated_normal(
-                mod.weight.shape, mod.weight.shape[1] ** -0.5, generator,
-                mod.weight.device))
+            put(at + "weight", mod.weight, lecun(1))
             if mod.bias is not None:
                 mod.bias.zero_()
         elif isinstance(mod, Embed):
-            normal(mod.weight, mod.weight.shape[1] ** -0.5)
+            put(at + "weight", mod.weight, normal(lambda s: s[1] ** -0.5))
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, RelPositionAttention):
-            normal(mod.distance_embedding, 0.02)
+            put(at + "distance_embedding", mod.distance_embedding,
+                normal(lambda s: 0.02))
         elif isinstance(mod, ConvModule):
-            w = mod.depthwise_kernel
-            w.copy_(_truncated_normal(w.shape, w.shape[-1] ** -0.5,
-                                      generator, w.device))
+            put(at + "depthwise_kernel", mod.depthwise_kernel, lecun(-1))
     enc = model.audio_encoder
     if hasattr(enc, "masked_spec_embed"):
         enc.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)

@@ -8,6 +8,12 @@ first, as Flax's dtype promotion does). The two attention heads are plain
 products and a softmax: ``WordLevelAlignment`` returns its probabilities,
 which a fused attention call cannot. Masked scores are filled with −1e9, not
 −inf, so a clip with no valid frame gives uniform probabilities, not NaN.
+Tensor parallel (``axis``) splits what JAX's rules split: the projection's
+hidden features (``dense_in`` / ``dense_out``), the heads of the
+cross-modal attention and of the word alignment's attention
+(``attn_q/k/v`` split by output features with their biases replicated, as
+JAX leaves them); ``score_in``, ``text_proj``, ``output_proj``,
+``confidence_*`` and the norms stay replicated.
 """
 
 from __future__ import annotations
@@ -19,7 +25,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from speech_transcript_embeddings_torch.models.layers import (
-    Dense, LayerNorm, dropout,
+    Dense, LayerNorm, column_dense, dropout, row_dense,
+)
+from speech_transcript_embeddings_torch.parallel.collectives import (
+    ModelAxis, copy_to_model, reduce_from_model,
 )
 
 NEG_INF = -1e9
@@ -30,23 +39,24 @@ class EnhancedProjection(nn.Module):
 
     def __init__(self, in_dim: int, projection_dim: int,
                  hidden_dim: Optional[int] = None, activation: str = "gelu",
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, axis: Optional[ModelAxis] = None):
         super().__init__()
         hidden = hidden_dim or 2 * projection_dim
         if activation not in ("gelu", "relu"):
             raise ValueError(f"unknown activation {activation!r}")
         self.activation = activation
         self.dropout_rate = dropout
-        self.dense_in = Dense(in_dim, hidden)
-        self.dense_out = Dense(hidden, projection_dim)
+        self.axis = axis
+        self.dense_in = column_dense(axis, in_dim, hidden)
+        self.dense_out = row_dense(axis, hidden, projection_dim)
         self.norm = LayerNorm(projection_dim, 1e-5)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.dense_in(x)
+        x = self.dense_in(copy_to_model(x, self.axis))
         x = (F.gelu(x, approximate="none") if self.activation == "gelu"
              else F.relu(x))
-        x = dropout(x, self.dropout_rate, generator)
+        x = dropout(x, self.dropout_rate, generator, self.axis)
         return self.norm(self.dense_out(x))
 
 
@@ -69,14 +79,16 @@ class AttentivePooling(nn.Module):
 
 
 def _probs(scores: torch.Tensor, mask: Optional[torch.Tensor], rate: float,
-           generator: Optional[torch.Generator]) -> torch.Tensor:
+           generator: Optional[torch.Generator],
+           axis: Optional[ModelAxis] = None) -> torch.Tensor:
     """Masked (−1e9 where ``mask`` is 0) softmax over the keys in fp32,
-    then dropout: ``scores [B, h, Tq, Tk]``, ``mask [B, Tk]``."""
+    then dropout: ``scores [B, h, Tq, Tk]`` (this rank's heads under
+    ``axis``), ``mask [B, Tk]``."""
     if mask is not None:
         scores = torch.where(mask[:, None, None, :] == 0,
                              torch.full_like(scores, NEG_INF), scores)
     probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
-    return dropout(probs, rate, generator)
+    return dropout(probs, rate, generator, axis, 1)
 
 
 class CrossModalAttention(nn.Module):
@@ -84,30 +96,34 @@ class CrossModalAttention(nn.Module):
     with a key mask ``[B, Tk]`` (1 = keep); scale head_dim^−½, dropout on
     the probabilities."""
 
-    def __init__(self, dim: int, num_heads: int = 8, dropout: float = 0.0):
+    def __init__(self, dim: int, num_heads: int = 8, dropout: float = 0.0,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"dim {dim} not divisible by {num_heads} heads")
         self.num_heads = num_heads
         self.dropout_rate = dropout
-        self.query = Dense(dim, dim)
-        self.key = Dense(dim, dim)
-        self.value = Dense(dim, dim)
-        self.out = Dense(dim, dim)
+        self.axis = axis
+        self.local_heads = axis.part(num_heads) if axis else num_heads
+        self.query = column_dense(axis, dim, dim)
+        self.key = column_dense(axis, dim, dim)
+        self.value = column_dense(axis, dim, dim)
+        self.out = row_dense(axis, dim, dim)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        d = x.shape[-1]
-        hd = d // self.num_heads
-        split = lambda h: h.reshape(*h.shape[:-1], self.num_heads, hd)  # noqa: E731
+        hd = x.shape[-1] // self.num_heads
+        split = lambda h: h.reshape(*h.shape[:-1], self.local_heads, hd)  # noqa: E731
+        x = copy_to_model(x, self.axis)
+        context = copy_to_model(context, self.axis)
         q = split(self.query(x))
         k = split(self.key(context))
         v = split(self.value(context))
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
-        probs = _probs(scores, mask, self.dropout_rate, generator)
+        probs = _probs(scores, mask, self.dropout_rate, generator, self.axis)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return self.out(out.reshape(*x.shape[:-1], d))
+        return self.out(out.reshape(*x.shape[:-1], self.local_heads * hd))
 
 
 class WordLevelAlignment(nn.Module):
@@ -120,17 +136,20 @@ class WordLevelAlignment(nn.Module):
     ``[B, Tt, Ta]``: the probabilities averaged over heads)."""
 
     def __init__(self, text_dim: int, audio_dim: int, alignment_dim: int,
-                 num_heads: int = 4, dropout: float = 0.0):
+                 num_heads: int = 4, dropout: float = 0.0,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         d = alignment_dim
         self.num_heads = num_heads
         self.dropout_rate = dropout
+        self.axis = axis
+        self.local_heads = axis.part(num_heads) if axis else num_heads
         self.text_proj = Dense(text_dim, d)
         self.audio_proj = Dense(audio_dim, d)
-        self.attn_q = Dense(d, d)
-        self.attn_k = Dense(d, d)
-        self.attn_v = Dense(d, d)
-        self.attn_out = Dense(d, d)
+        self.attn_q = column_dense(axis, d, d, replicated_bias=True)
+        self.attn_k = column_dense(axis, d, d, replicated_bias=True)
+        self.attn_v = column_dense(axis, d, d, replicated_bias=True)
+        self.attn_out = row_dense(axis, d, d)
         self.output_proj = Dense(d, d)
         self.norm = LayerNorm(d, 1e-5)
         self.confidence_in = Dense(d, d // 2)
@@ -145,15 +164,22 @@ class WordLevelAlignment(nn.Module):
         hd = d // self.num_heads
         text_proj = self.text_proj(text_hidden)
         audio_proj = self.audio_proj(audio_hidden)
-        split = lambda h: h.reshape(*h.shape[:-1], self.num_heads, hd)  # noqa: E731
-        q = split(self.attn_q(text_proj))
-        k = split(self.attn_k(audio_proj))
-        v = split(self.attn_v(audio_proj))
+        split = lambda h: h.reshape(*h.shape[:-1], self.local_heads, hd)  # noqa: E731
+        q = split(self.attn_q(copy_to_model(text_proj, self.axis)))
+        audio_in = copy_to_model(audio_proj, self.axis)
+        k = split(self.attn_k(audio_in))
+        v = split(self.attn_v(audio_in))
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (hd ** 0.5)
-        probs = _probs(scores, audio_mask, self.dropout_rate, generator)
+        probs = _probs(scores, audio_mask, self.dropout_rate, generator,
+                       self.axis)
         attended = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        attended = self.attn_out(attended.reshape(text_proj.shape))
-        alignment_matrix = probs.mean(dim=1)
+        attended = self.attn_out(attended.reshape(
+            *text_proj.shape[:-1], self.local_heads * hd))
+        if self.axis is None:
+            alignment_matrix = probs.mean(dim=1)
+        else:   # the mean over every rank's heads
+            alignment_matrix = reduce_from_model(
+                probs.sum(dim=1), self.axis) / self.num_heads
         residual = (text_hidden.float() if text_hidden.shape[-1] == d
                     else text_proj)
         aligned = self.norm(residual + self.output_proj(attended))

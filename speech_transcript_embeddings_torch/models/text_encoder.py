@@ -8,6 +8,9 @@ Dropout sits at the JAX places (embeddings, attention probabilities,
 attention output, FFN output) and draws from the ``generator`` passed in
 (None: deterministic). With ``remat`` each block is recomputed in the
 backward (non-reentrant ``torch.utils.checkpoint``), as ``nn.remat`` does.
+Tensor parallel (``axis``): the word table splits its vocabulary
+(``VocabEmbed``), the attention its heads and the FFN its intermediate
+features; the other tables and the norms stay replicated.
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ from torch.utils.checkpoint import checkpoint
 
 from speech_transcript_embeddings_torch.config import TextEncoderConfig
 from speech_transcript_embeddings_torch.models.layers import (
-    Dense, Embed, LayerNorm, dropout, masked_probs, replayable,
+    Embed, LayerNorm, column_dense, dropout, embed, masked_probs, replayable,
+    row_dense,
+)
+from speech_transcript_embeddings_torch.parallel.collectives import (
+    ModelAxis, copy_to_model,
 )
 
 
@@ -33,10 +40,11 @@ def roberta_position_ids(input_ids: torch.Tensor, pad_token_id: int
 
 class TextEmbeddings(nn.Module):
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         c = self.cfg = cfg
-        self.word_embeddings = Embed(c.vocab_size, c.hidden_size, dtype,
+        self.word_embeddings = embed(axis, c.vocab_size, c.hidden_size, dtype,
                                      param_dtype)
         self.position_embeddings = Embed(c.max_position_embeddings,
                                          c.hidden_size, dtype, param_dtype)
@@ -55,22 +63,29 @@ class TextEmbeddings(nn.Module):
 
 class TextSelfAttention(nn.Module):
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         c = self.cfg = cfg
         h = c.hidden_size
-        dense = lambda: Dense(h, h, dtype=dtype, param_dtype=param_dtype)
-        self.query, self.key, self.value, self.out = (dense() for _ in range(4))
+        self.axis = axis
+        self.num_heads = axis.part(c.num_heads) if axis else c.num_heads
+        kw = dict(dtype=dtype, param_dtype=param_dtype)
+        self.query, self.key, self.value = (column_dense(axis, h, h, **kw)
+                                            for _ in range(3))
+        self.out = row_dense(axis, h, h, **kw)
         self.norm = LayerNorm(h, c.layer_norm_eps, dtype)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.cfg
-        split = lambda t: t.reshape(*t.shape[:-1], c.num_heads, c.head_dim)
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        split = lambda t: t.reshape(*t.shape[:-1], self.num_heads, c.head_dim)
+        xin = copy_to_model(x, self.axis)
+        q, k, v = (split(self.query(xin)), split(self.key(xin)),
+                   split(self.value(xin)))
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / (c.head_dim ** 0.5)
         probs = dropout(masked_probs(scores, mask), c.attention_dropout,
-                        generator)
+                        generator, self.axis, 1)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(probs.dtype))
         out = dropout(self.out(ctx.reshape(*x.shape[:-1], -1)),
                       c.hidden_dropout, generator)
@@ -79,19 +94,23 @@ class TextSelfAttention(nn.Module):
 
 class TextLayer(nn.Module):
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 axis: Optional[ModelAxis] = None):
         super().__init__()
         c = self.cfg = cfg
-        self.attention = TextSelfAttention(c, dtype, param_dtype)
-        self.intermediate = Dense(c.hidden_size, c.intermediate_size,
-                                  dtype=dtype, param_dtype=param_dtype)
-        self.output = Dense(c.intermediate_size, c.hidden_size, dtype=dtype,
-                            param_dtype=param_dtype)
+        self.axis = axis
+        self.attention = TextSelfAttention(c, dtype, param_dtype, axis)
+        self.intermediate = column_dense(axis, c.hidden_size,
+                                         c.intermediate_size, dtype=dtype,
+                                         param_dtype=param_dtype)
+        self.output = row_dense(axis, c.intermediate_size, c.hidden_size,
+                                dtype=dtype, param_dtype=param_dtype)
         self.norm = LayerNorm(c.hidden_size, c.layer_norm_eps, dtype)
 
     def forward(self, x, mask, generator=None):
         x = self.attention(x, mask, generator)
-        y = self.output(F.gelu(self.intermediate(x), approximate="none"))
+        y = self.output(F.gelu(self.intermediate(copy_to_model(x, self.axis)),
+                               approximate="none"))
         return self.norm(x + dropout(y, self.cfg.hidden_dropout, generator))
 
 
@@ -102,13 +121,14 @@ class TextEncoder(nn.Module):
 
     def __init__(self, cfg: TextEncoderConfig, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype] = None,
-                 remat: bool = False):
+                 remat: bool = False, axis: Optional[ModelAxis] = None):
         super().__init__()
         self.cfg = cfg
         self.remat = remat
-        self.embeddings = TextEmbeddings(cfg, dtype, param_dtype)
+        self.embeddings = TextEmbeddings(cfg, dtype, param_dtype, axis)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", TextLayer(cfg, dtype, param_dtype))
+            self.add_module(f"layer_{i}",
+                            TextLayer(cfg, dtype, param_dtype, axis))
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,

@@ -38,6 +38,15 @@ then means card ``LOCAL_RANK``. Only rank 0 writes files:
     torchrun --nproc_per_node=N -m speech_transcript_embeddings_torch.train \\
         preset=retrieval data.batch_size=64 \\
         train.output_dir=speech_transcript_embeddings_torch/_build/torch_dp
+
+Tensor parallel: ``mesh.num_model=M`` splits the model over M ranks of
+each data row, as JAX's ``model`` mesh axis does (``parallel/mesh.py``);
+launch D·M processes. With one process ``mesh.num_model=2`` raises JAX's
+``ValueError``. Checkpoints keep the one-process layout:
+
+    torchrun --nproc_per_node=2 -m speech_transcript_embeddings_torch.train \\
+        preset=tiny device=cpu mesh.num_model=2 \\
+        train.output_dir=speech_transcript_embeddings_torch/_build/torch_tp
 """
 
 from __future__ import annotations

@@ -5,8 +5,11 @@ mean of per-micro-batch gradients must equal the gradient of the batches
 concatenated, which is what accumulation applies. The check uses the
 pairwise loss (linear in per-sample terms, so the identity is exact; the
 global loss couples the samples of a batch by design) and no dropout.
-It makes no collective: under data parallel training every rank runs it
-identically, on the same whole probe batches, and none waits on another.
+It makes no collective of the data axis: under data parallel training
+every rank runs it identically, on the same whole probe batches, and none
+waits on another; under tensor parallel the model axis's collectives run
+inside the forward and backward, on every rank alike, and each rank
+compares its own shards.
 """
 
 from __future__ import annotations

@@ -17,19 +17,24 @@ the epoch has synced, so the step log adds no host sync to the batch loop.
 The dropout generator restarts from ``seed + 17`` in every process, as the
 JAX loop's key does.
 
-Data parallel (``parallel/``): under a process group every rank runs this
-loop on its own rows of each global batch (``shard_batch`` in the prefetch
-thread) with its own dropout stream (``seed + 17 + RANK_STREAM·rank``), and
-takes the data-parallel path at every world size, one included. The step
-log's losses and metrics are reduced to global means at the syncs the loop
-already has (the ``log_every_batches`` cadence, the end of an epoch), the
-evaluation's sums over ranks and its cosines and embeddings gathered, so
-every metric covers the whole split. The preemption is agreed after every
-batch (``preempt_agreed``, over host memory: no device sync), so every
-rank enters the mid-epoch save at the same batch, one micro-step after a
-SIGTERM at most. Rank 0 writes every file (checkpoints, plots,
-``config.json``, ``training.log``, the metrics JSON); every rank restores
-``latest`` onto its own device and skips the same batches.
+The mesh (``parallel/``): under a process group every rank runs this loop
+on its data index's rows of each global batch (``shard_batch`` in the
+prefetch thread) with its data index's dropout stream (``seed + 17 +
+RANK_STREAM·data_index``: the ranks of a data row, which hold one model's
+shards, draw the same masks), and takes the data-parallel path at every
+world size, one included. With ``mesh.num_model`` > 1 (tensor parallel)
+each rank holds its shards of the model and of the optimizer state. The
+step log's losses and metrics are reduced to global means over the data
+axis at the syncs the loop already has (the ``log_every_batches`` cadence,
+the end of an epoch), the evaluation's sums over the data axis and its
+cosines and embeddings gathered, so every metric covers the whole split.
+The preemption is agreed after every batch over the mesh's ranks
+(``preempt_agreed``, over host memory: no device sync), so every rank
+enters the mid-epoch save at the same batch, one micro-step after a SIGTERM
+at most. Rank 0 writes every file (checkpoints, in the one-process layout,
+plots, ``config.json``, ``training.log``, the metrics JSON); every rank
+restores ``latest`` onto its own device and skips the same batches. Ranks
+that a shrunk mesh leaves out log it and return without training.
 """
 
 from __future__ import annotations
@@ -81,29 +86,31 @@ def request_preemption(signum=None, frame=None) -> None:
     _PREEMPT.set()
 
 
-def preempt_agreed(local: bool) -> bool:
-    """The preemption decision of all processes: True on every rank when
-    any rank's flag is set (``any_rank``), since the mid-epoch save is a
-    collective that every rank must enter at the same batch. Called after
-    every batch on every rank. One process: the local flag."""
-    return collectives.any_rank(local)
+def preempt_agreed(local: bool, host_group=None) -> bool:
+    """The preemption decision of the mesh's ranks (``host_group``; None:
+    every rank): True on every rank when any rank's flag is set
+    (``any_rank``), since the mid-epoch save is a collective that every
+    rank must enter at the same batch. Called after every batch on every
+    rank. One process: the local flag."""
+    return collectives.any_rank(local, host_group)
 
 
 def dropout_generator(seed: int, device: torch.device,
-                      rank: int = 0) -> torch.Generator:
+                      data_index: int = 0) -> torch.Generator:
     """The dropout and SpecAugment generator of a run: ``seed + 17`` (the
-    JAX loop's key) on rank 0, a stream of its own on every other rank,
-    so that ranks do not draw the same masks for different rows."""
+    JAX loop's key) at data index 0, a stream of its own at every other
+    one, so that data ranks do not draw the same masks for different rows
+    and the model ranks of one data row draw the same."""
     return torch.Generator(device).manual_seed(seed + 17
-                                               + RANK_STREAM * rank)
+                                               + RANK_STREAM * data_index)
 
 
 def check_supported(cfg: ExperimentConfig, device: torch.device
                     ) -> mesh_lib.Mesh:
     """Raise for the fields this loop cannot honour without changing the
-    result of the run; → the run's mesh (``make_mesh``: a ``mesh.num_data``
-    other than the number of ranks, a batch the ranks do not divide and
-    tensor parallel raise)."""
+    result of the run; → the run's mesh (``make_mesh``: a mesh larger than
+    the process group, or a ``mesh.num_model`` that does not divide it,
+    raises)."""
     latest = os.path.join(cfg.train.output_dir, "latest")
     if cfg.train.resume and ckpt_lib.checkpoint_exists(latest):
         meta = ckpt_lib.load_metadata(latest)
@@ -125,13 +132,13 @@ def check_supported(cfg: ExperimentConfig, device: torch.device
     return mesh_lib.make_mesh(cfg)
 
 
-def _gather_batches(parts) -> np.ndarray:
+def _gather_batches(parts, group=None) -> np.ndarray:
     """This rank's per-batch rows (device tensors of one length) → every
-    rank's, on the host, in the order of the global batches: one
-    collective."""
+    data rank's (``group``), on the host, in the order of the global
+    batches: one collective."""
     local = torch.cat(parts)
-    n = collectives.world_size()
-    rows = collectives.gather_host(local)
+    n = collectives.world_size(group)
+    rows = collectives.gather_host(local, group)
     # [rank, batch, row] → [batch, rank, row]: the global batches' order
     return rows.reshape((n, len(parts), -1) + rows.shape[1:]).swapaxes(
         0, 1).reshape((-1,) + rows.shape[1:])
@@ -142,12 +149,13 @@ def evaluate(cfg, model, frontend, pipeline, source, split: str, epoch: int,
              ) -> Tuple[Dict[str, float], np.ndarray, np.ndarray, int]:
     """→ (metrics, raw clean cosines, raw corrupt cosines, batches), over
     the whole split: under data parallel the sums are summed over the
-    ranks and the cosines gathered."""
+    data axis and the cosines gathered."""
     sums = []
+    group = mesh.data_group
     for batch in prefetch(map(functools.partial(mesh_lib.shard_batch, mesh),
                               pipeline.epoch_batches(source, split, epoch)),
                           2):
-        sums.append(eval_step(cfg, model, frontend, batch))
+        sums.append(eval_step(cfg, model, frontend, batch, mesh))
     if not sums:
         logger.warning(f"No valid samples were processed during {split} "
                        "evaluation")
@@ -157,10 +165,11 @@ def evaluate(cfg, model, frontend, pipeline, source, split: str, epoch: int,
         return zero, np.array([]), np.array([]), 0
     loss_sum, pairwise_sum, count = collectives.sum_over_ranks(torch.stack([
         sum(o[k] for o in sums) for k in ("loss_sum", "pairwise_loss_sum",
-                                          "count")])).tolist()
-    masks = _gather_batches([o["example_mask"] for o in sums]).astype(bool)
-    s_pos = _gather_batches([o["s_pos"] for o in sums])[masks]
-    s_neg = _gather_batches([o["s_neg"] for o in sums])[masks]
+                                          "count")]), group).tolist()
+    masks = _gather_batches([o["example_mask"] for o in sums],
+                            group).astype(bool)
+    s_pos = _gather_batches([o["s_pos"] for o in sums], group)[masks]
+    s_neg = _gather_batches([o["s_neg"] for o in sums], group)[masks]
     t = cfg.loss.temperature
     clean_hr = 1.0 / (1.0 + np.exp(-s_pos / t))
     corrupt_hr = 1.0 / (1.0 + np.exp(-s_neg / t))
@@ -204,9 +213,11 @@ def compute_retrieval(model, frontend, pipeline, source, split: str = "test",
         audio_embs.append(l2_normalize(ae))
     if not text_embs:
         return {}, 0
-    keep = _gather_batches(keeps).astype(bool)
-    return retrieval_metrics(_gather_batches(audio_embs)[keep],
-                             _gather_batches(text_embs)[keep]), len(text_embs)
+    group = mesh.data_group
+    keep = _gather_batches(keeps, group).astype(bool)
+    return retrieval_metrics(_gather_batches(audio_embs, group)[keep],
+                             _gather_batches(text_embs, group)[keep]), \
+        len(text_embs)
 
 
 def _sync(device: torch.device) -> None:
@@ -274,6 +285,12 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     logger) -> dict:
     device = resolve_device(device)
     mesh = check_supported(cfg, device)
+    if not mesh.active:
+        logging.getLogger(__name__).warning(
+            f"rank {mesh.rank} is outside the mesh (data={mesh.data} × "
+            f"model={mesh.model} runs on ranks 0-"
+            f"{mesh.data * mesh.model - 1}): it does not train")
+        return {"active": False, "mesh": mesh}
     writer = mesh.rank == 0          # the one rank that writes files
     if collectives.initialized() and device.type == "cuda":
         # the launcher's card, before the first collective binds NCCL to it
@@ -318,19 +335,32 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
     logger.info(f"  Training samples: {source.num_examples('train')}")
     logger.info(f"  Validation samples: {source.num_examples('validation')}")
     logger.info(f"  Test samples: {source.num_examples('test')}")
+    if mesh.note:
+        logger.warning(mesh.note)
     if collectives.initialized():
+        world = collectives.world_size()
         off, per = mesh_lib.host_batch_slice(cfg.data.batch_size, mesh)
+        logger.info(
+            f"Mesh: data={mesh.data} × model={mesh.model} on ranks 0-"
+            f"{mesh.data * mesh.model - 1} of {world}"
+            + (f" (ranks {mesh.data * mesh.model}-{world - 1} do not "
+               "train)" if mesh.data * mesh.model < world else ""))
         logger.info(
             f"Data parallel: {mesh.data} rank(s) over "
             f"{torch.distributed.get_backend()}; rank {mesh.rank} feeds rows "
             f"[{off}:{off + per}] of each global batch; gradients averaged "
             f"every micro-step; preemption agreed every batch")
+        if mesh.model > 1:
+            logger.info(
+                f"Tensor parallel: {mesh.model} rank(s) a data row over "
+                f"{torch.distributed.get_backend()}; each holds its shard of "
+                "the split parameters and of their optimizer state")
 
     model = init_model(cfg.model, torch.Generator(device).manual_seed(
-        cfg.train.seed), device, train=True)
+        cfg.train.seed), device, train=True, axis=mesh.model_axis())
     if cfg.train.init_checkpoint:
         logger.info(f"Initializing params from {cfg.train.init_checkpoint}")
-        ckpt_lib.load_into(cfg.train.init_checkpoint, model)
+        ckpt_lib.load_into(cfg.train.init_checkpoint, model, mesh)
 
     exact = pipeline.count_epoch_batches(source, "train") \
         if cfg.train.exact_schedule else None
@@ -345,9 +375,11 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
             f"train.schedule_epochs={schedule_epochs} < num_epochs="
             f"{cfg.train.num_epochs}: the decay would end before training does")
     total_steps = steps_per_epoch * schedule_epochs
-    state = create_train_state(model, cfg, total_steps)
-    n_param = sum(p.numel() for p in model.parameters())
-    n_train = sum(p.numel() for p in state.trainable.values())
+    state = create_train_state(model, cfg, total_steps, mesh)
+    # the whole model's counts (a rank's shards hold fewer under TP)
+    shapes = model.full_shapes()
+    n_param = sum(math.prod(s) for s in shapes.values())
+    n_train = sum(math.prod(shapes[k]) for k in state.trainable)
     logger.info(f"Model initialized with {n_train:,} trainable parameters "
                 f"out of {n_param:,} total")
     logger.info(f"Scheduler: {batches_per_epoch} batches/epoch, "
@@ -414,7 +446,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
         results["gradient_check"] = diagnostics.validate_gradient_accumulation(
             cfg, state, frontend, probe)
 
-    generator = dropout_generator(cfg.train.seed, device, mesh.rank)
+    generator = dropout_generator(cfg.train.seed, device, mesh.data_index)
     # under a process group every rank must agree to preempt
     agreed = cfg.train.preempt_checkpoint and collectives.initialized()
     for epoch in range(start_epoch, cfg.train.num_epochs + 1):
@@ -446,7 +478,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     request_preemption()
                 if agreed:
                     # every rank reaches this batch: a matched collective
-                    stop = preempt_agreed(_PREEMPT.is_set())
+                    stop = preempt_agreed(_PREEMPT.is_set(), mesh.host_group)
                 else:
                     stop = cfg.train.preempt_checkpoint and _PREEMPT.is_set()
                 if stop:
@@ -456,7 +488,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     done = offset + n_batches + 1
                     _sync(device)
                     results["step_log"] += _step_log(epoch, offset, start,
-                                                     steps)
+                                                     steps, mesh.data_group)
                     logger.info(f"Preemption requested: checkpointing "
                                 f"{latest_path} mid-epoch (epoch {epoch}, "
                                 f"{done} batches done) and exiting")
@@ -474,7 +506,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                     prof = None
                 if n_batches % cfg.train.log_every_batches == 0:
                     # the only host sync in the batch loop
-                    a = _global_mean(acc, n_batches)
+                    a = _global_mean(acc, n_batches, mesh.data_group)
                     mem = _gib(torch.cuda.memory_allocated, device)
                     logger.info(
                         f"Epoch {epoch} batch {n_batches}: "
@@ -497,14 +529,15 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
                 _stop_profiler(prof, cfg, logger)
             _sync(device)
             train_time = time.perf_counter() - t0
-            results["step_log"] += _step_log(epoch, offset, start, steps)
+            results["step_log"] += _step_log(epoch, offset, start, steps,
+                                             mesh.data_group)
             # from the end of the first micro-step to the end of the last
             warm_clips_per_sec = (
                 (n_batches - 1) * cfg.data.batch_size
                 / max(_seconds(steps[0][2], steps[-1][2]), 1e-9)
                 if n_batches > 1 else 0.0)
             n = max(n_batches, 1)
-            a = (_global_mean(acc, n) if acc is not None
+            a = (_global_mean(acc, n, mesh.data_group) if acc is not None
                  else {"loss": 0.0, "clean_hr": 0.0, "corrupt_hr": 0.0,
                        "grad_norm": 0.0})
             train_metrics = {
@@ -580,7 +613,8 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
     save("final_model", cfg.train.num_epochs, {}, params_only=True)
     # the test phase needs parameters only; each best checkpoint is loaded
     # into its own eval model (serving storage: the same values the training
-    # form computes with), one at a time
+    # form computes with; a rank's shards under tensor parallel), one at a
+    # time
     state.optimizer.drop_moments()
     test_results: Dict[str, dict] = {}
     test_batches = 0
@@ -590,7 +624,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
         if not ckpt_lib.checkpoint_exists(path):
             logger.warning(f"{name} model not found")
             continue
-        _, eval_model = ckpt_lib.load_checkpoint(path, device)
+        _, eval_model = ckpt_lib.load_checkpoint(path, device, mesh)
         logger.info(f"Loaded {name.lower()} model from epoch "
                     f"{ckpt_lib.load_metadata(path)['epoch']}")
         metrics, s_pos, s_neg, n = evaluate(
@@ -614,7 +648,7 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
         os.path.join(out_dir, "best_model_gap")) else "best_model_loss")
     if ckpt_lib.checkpoint_exists(os.path.join(out_dir, best_kind)):
         _, eval_model = ckpt_lib.load_checkpoint(
-            os.path.join(out_dir, best_kind), device)
+            os.path.join(out_dir, best_kind), device, mesh)
         retrieval, results["retrieval_batches"] = compute_retrieval(
             eval_model, frontend, pipeline, source, "test", mesh)
         del eval_model
@@ -641,21 +675,24 @@ def _run_experiment(cfg: ExperimentConfig, device, source, tokenizer,
     return results
 
 
-def _global_mean(acc: dict, n: int) -> dict:
+def _global_mean(acc: dict, n: int, group=None) -> dict:
     """Each metric summed over ``n`` micro-steps → its mean, averaged over
-    the ranks under a process group (one collective)."""
+    the data axis (``group``) under a process group (one collective)."""
     values = list(acc.values())
     if collectives.initialized():
-        values = collectives.mean_over_ranks(torch.stack(values)).tolist()
+        values = collectives.mean_over_ranks(torch.stack(values),
+                                             group).tolist()
     return {k: float(v) / n for k, v in zip(acc, values)}
 
 
-def _step_log(epoch, offset, start, steps):
+def _step_log(epoch, offset, start, steps, group=None):
     """The epoch's step-log entries (after a device sync); each loss the
-    mean over the ranks under a process group (one collective)."""
+    mean over the data axis (``group``) under a process group (one
+    collective)."""
     losses = [loss for _, loss, _ in steps]
     if collectives.initialized() and steps:
-        losses = collectives.mean_over_ranks(torch.stack(losses)).tolist()
+        losses = collectives.mean_over_ranks(torch.stack(losses),
+                                             group).tolist()
     return [{"epoch": epoch, "batch": offset + i + 1, "samples": samples,
              "loss": float(loss), "t": _seconds(start, mark)}
             for i, ((samples, _, mark), loss) in enumerate(zip(steps,

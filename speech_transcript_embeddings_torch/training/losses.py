@@ -8,7 +8,10 @@ Port of ``speech_transcript_embeddings_tpu/training/losses.py``:
   clean and every corrupted transcript of the GLOBAL batch. Under data
   parallel training (``axis_name="data"``) each rank holds its own rows and
   gathers every rank's transcripts with ``parallel.collectives.gather_rows``,
-  whose backward sums each row's gradient over every rank's loss.
+  whose backward sums each row's gradient over every rank's loss. The
+  ``group`` is the data axis's (``Mesh.data_group``; None: every rank):
+  under tensor parallel the ranks of a data row hold the same embeddings
+  and each gathers over its own data axis.
 
 With the word-alignment head on, each sample's term is weighted by
 ``1 − sigmoid(mean token score)·alignment_weight``.
@@ -62,23 +65,25 @@ def pairwise_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
     return loss, LossAux(s_pos=s_pos, s_neg=s_neg)
 
 
-def _gathered(text_pos, text_neg, axis_name):
+def _gathered(text_pos, text_neg, axis_name, group):
     """(every rank's clean transcripts, every rank's corrupted ones, this
-    rank's offset in them): one ``gather_rows`` of both, so the forward and
-    the backward each make one collective."""
+    rank's offset in them): one ``gather_rows`` of both over ``group``, so
+    the forward and the backward each make one collective."""
     if axis_name is None:
         return text_pos, text_neg, 0
     collectives.require(axis_name)
     b = text_pos.shape[0]
-    both = collectives.gather_rows(torch.cat([text_pos, text_neg], dim=0))
+    both = collectives.gather_rows(torch.cat([text_pos, text_neg], dim=0),
+                                   group)
     both = both.reshape(-1, 2, b, text_pos.shape[-1])         # [N, 2, B, D]
     return (both[:, 0].reshape(-1, text_pos.shape[-1]),
             both[:, 1].reshape(-1, text_pos.shape[-1]),
-            collectives.rank() * b)
+            collectives.rank(group) * b)
 
 
 def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
-                    alignment_scores=None, axis_name: Optional[str] = None):
+                    alignment_scores=None, axis_name: Optional[str] = None,
+                    group=None):
     """In-batch-negative InfoNCE: row i's candidates are every clean and
     every corrupted transcript of the global batch; its target is its own
     clean transcript. With ``axis_name`` (data parallel) the rows are this
@@ -86,7 +91,7 @@ def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
     and the loss (the corrupt penalty too) the local mean, so that the
     mean of the ranks' gradients is the gradient of the global batch's
     loss, as JAX's ``shard_map`` form computes it."""
-    all_pos, all_neg, shard = _gathered(text_pos, text_neg, axis_name)
+    all_pos, all_neg, shard = _gathered(text_pos, text_neg, axis_name, group)
     b = audio.shape[0]
     cand = torch.cat([all_pos, all_neg], dim=0)               # [2·Bg, D]
     logits = (audio @ cand.T) / cfg.temperature               # [Bl, 2·Bg]
@@ -105,16 +110,16 @@ def global_info_nce(cfg: LossConfig, text_pos, text_neg, audio,
 
 def global_per_sample_masked(cfg: LossConfig, text_pos, text_neg, audio,
                              example_mask, alignment_scores=None,
-                             axis_name: Optional[str] = None):
+                             axis_name: Optional[str] = None, group=None):
     """Per-sample in-batch InfoNCE for evaluation under masked tails: the
     candidate columns of padded rows (``example_mask`` 0) are removed
     before the log-softmax. Entries of padded rows are meaningless; the
     caller's mask zeroes them. With ``axis_name`` the rows are this rank's,
     scored against the whole batch's candidates, whose masks are gathered
     with them (a padded row on another rank is still no candidate)."""
-    all_pos, all_neg, shard = _gathered(text_pos, text_neg, axis_name)
+    all_pos, all_neg, shard = _gathered(text_pos, text_neg, axis_name, group)
     all_mask = example_mask if axis_name is None else \
-        collectives.gather_rows(example_mask)
+        collectives.gather_rows(example_mask, group)
     b = audio.shape[0]
     cand = torch.cat([all_pos, all_neg], dim=0)
     logits = (audio @ cand.T) / cfg.temperature
@@ -131,7 +136,8 @@ def global_per_sample_masked(cfg: LossConfig, text_pos, text_neg, audio,
     return per
 
 
-def compute_loss(cfg: LossConfig, output, axis_name: Optional[str] = None):
+def compute_loss(cfg: LossConfig, output, axis_name: Optional[str] = None,
+                 group=None):
     """Dispatch on ``cfg.kind`` given a ``PosNegOutput``."""
     if cfg.kind == "pairwise":
         return pairwise_info_nce(cfg, output.text_pos, output.text_neg,
@@ -139,5 +145,5 @@ def compute_loss(cfg: LossConfig, output, axis_name: Optional[str] = None):
     if cfg.kind == "global":
         return global_info_nce(cfg, output.text_pos, output.text_neg,
                                output.audio, output.alignment_scores,
-                               axis_name)
+                               axis_name, group)
     raise ValueError(f"Unknown loss kind {cfg.kind!r}")

@@ -20,11 +20,16 @@ Port of ``speech_transcript_embeddings_tpu/training/optimizer.py``:
   ``state_dict``/``load_state_dict`` carry the whole state, as optax's
   ``MultiSteps`` state does, so a run preempted inside an accumulation
   window resumes with the same partial mean.
+
+Under tensor parallel each rank holds the shards of its parameters, so μ, ν
+and the accumulator are per shard (JAX's ``opt_state_shardings``), and the
+clip's global norm sums each split leaf's squares over the model axis and
+counts each replicated leaf once.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -32,6 +37,9 @@ from torch import nn
 
 from speech_transcript_embeddings_torch.config import (
     FreezeConfig, ModelConfig, OptimizerConfig,
+)
+from speech_transcript_embeddings_torch.parallel.collectives import (
+    ModelAxis, all_reduce_model,
 )
 
 FROZEN, ENCODER, HEAD = "frozen", "encoder", "head"
@@ -95,21 +103,37 @@ def linear_warmup_factor(cfg: OptimizerConfig, total_steps: int
     return factor
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in tensors))
+def global_norm(tensors: Iterable[torch.Tensor],
+                sharded: Iterable[torch.Tensor] = (),
+                axis: Optional[ModelAxis] = None) -> torch.Tensor:
+    """√(Σ g²) over ``tensors`` (whole, or replicated over the model axis)
+    and ``sharded`` (this rank's shards of split leaves, whose squared sums
+    are summed over ``axis``)."""
+    square = lambda ts: sum(torch.sum(g.float() * g.float()) for g in ts)
+    total = square(tensors)
+    parts = list(sharded)
+    if parts:
+        total = total + all_reduce_model(square(parts), axis)
+    return torch.sqrt(total)
 
 
 class AdamW:
     """The JAX ``make_optimizer`` over the trainable parameters
-    (``params``: name → parameter, ``labels``: name → ``encoder``|``head``)."""
+    (``params``: name → parameter, ``labels``: name → ``encoder``|``head``);
+    under tensor parallel, ``sharded`` names the split ones, whose shards
+    this rank holds on the model ``axis``."""
 
     def __init__(self, cfg: OptimizerConfig, freeze: FreezeConfig,
                  params: Dict[str, torch.Tensor], labels: Dict[str, str],
-                 total_steps: int, accumulation_steps: int = 1):
+                 total_steps: int, accumulation_steps: int = 1,
+                 axis: Optional[ModelAxis] = None,
+                 sharded: frozenset = frozenset()):
         if any(labels[k] == FROZEN for k in params):
             raise ValueError("AdamW takes the trainable split only")
         self.cfg = cfg
         self.params = params
+        self.axis = axis
+        self.sharded = sharded
         self.factor = linear_warmup_factor(cfg, total_steps)
         encoder_scale = (1.0 / cfg.encoder_lr_divisor
                          if freeze.mode == "partial" else 1.0)
@@ -163,6 +187,12 @@ class AdamW:
         phase needs the parameters only); ``count`` stays."""
         self.mu = self.nu = self.acc = None
 
+    def global_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of a gradient of every trainable parameter."""
+        return global_norm(
+            (g for k, g in grads.items() if k not in self.sharded),
+            (g for k, g in grads.items() if k in self.sharded), self.axis)
+
     def lr(self, name: str) -> np.float32:
         """The learning rate of the next update of ``name``."""
         return self.base_lr[name] * self.factor(self.count)
@@ -187,7 +217,7 @@ class AdamW:
 
     def _update(self, grads: Dict[str, torch.Tensor]) -> None:
         c = self.cfg
-        g_norm = global_norm(grads.values())
+        g_norm = self.global_norm(grads)
         keep = g_norm < c.max_grad_norm            # on the device: no sync
         count = self.count + 1
         f32 = np.float32

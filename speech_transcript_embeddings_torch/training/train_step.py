@@ -7,7 +7,11 @@ step's generator → contrastive loss → gradients of the trainable split only
 (the frozen split has ``requires_grad`` off, so autograd never computes its
 gradients) → the optimizer's micro-step. The state holds the model itself:
 trainable parameters in fp32, the frozen split rounded once to
-``resolve_frozen_dtype(cfg)``, and the optimizer's moments.
+``resolve_frozen_dtype(cfg)``, and the optimizer's moments. On a mesh
+(``state.mesh``) the loss gathers and the gradient mean run over the data
+axis only; under tensor parallel the model holds this rank's shards, the
+model axis's collectives run inside its forward and backward, and the grad
+norm counts each split leaf once across its shards.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
 from speech_transcript_embeddings_torch.parallel import collectives
+from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
 from speech_transcript_embeddings_torch.training import losses
 from speech_transcript_embeddings_torch.training import optimizer as opt_lib
 
@@ -38,6 +43,7 @@ class TrainState:
     frozen: Dict[str, torch.nn.Parameter]
     optimizer: opt_lib.AdamW
     step: int = 0                      # micro-steps taken
+    mesh: Optional[mesh_lib.Mesh] = None   # None: every rank on the data axis
 
 
 def resolve_frozen_dtype(cfg: ExperimentConfig) -> str:
@@ -47,11 +53,13 @@ def resolve_frozen_dtype(cfg: ExperimentConfig) -> str:
 
 @torch.no_grad()
 def create_train_state(model: DualEncoderModel, cfg: ExperimentConfig,
-                       total_steps: int) -> TrainState:
-    """Label and freeze ``model`` (the training form of ``init_model``),
-    round every frozen parameter once to the frozen dtype (LayerNorm
-    scales, distance embeddings and depthwise kernels included, as JAX
-    casts its whole frozen split), and build the optimizer."""
+                       total_steps: int,
+                       mesh: Optional[mesh_lib.Mesh] = None) -> TrainState:
+    """Label and freeze ``model`` (the training form of ``init_model``,
+    built on ``mesh``'s model axis under tensor parallel), round every
+    frozen parameter once to the frozen dtype (LayerNorm scales, distance
+    embeddings and depthwise kernels included, as JAX casts its whole
+    frozen split), and build the optimizer."""
     labels = opt_lib.param_labels(model, cfg.freeze, cfg.model)
     opt_lib.apply_freeze(model, labels)
     frozen_dtype = _DTYPES[resolve_frozen_dtype(cfg)]
@@ -62,9 +70,13 @@ def create_train_state(model: DualEncoderModel, cfg: ExperimentConfig,
             frozen[name] = p
         else:
             trainable[name] = p
+    axis = model.axis
+    sharded = frozenset(k for k in trainable if axis is not None
+                        and mesh_lib.shard_dim(k) is not None)
     tx = opt_lib.AdamW(cfg.optimizer, cfg.freeze, trainable, labels,
-                       total_steps, cfg.train.accumulation_steps)
-    return TrainState(model, labels, trainable, frozen, tx)
+                       total_steps, cfg.train.accumulation_steps, axis,
+                       sharded)
+    return TrainState(model, labels, trainable, frozen, tx, mesh=mesh)
 
 
 def _to_device(a, device) -> torch.Tensor:
@@ -88,9 +100,13 @@ def model_batch_from_host(frontend, batch: dict, device) -> dict:
 
 
 def data_axis() -> Optional[str]:
-    """``"data"`` under a process group (every rank of it on the data
-    axis), None in one process."""
+    """``"data"`` under a process group, None in one process."""
     return "data" if collectives.initialized() else None
+
+
+def data_group(mesh: Optional[mesh_lib.Mesh]):
+    """The process group of ``mesh``'s data axis (None: every rank)."""
+    return None if mesh is None else mesh.data_group
 
 
 def train_step(cfg: ExperimentConfig, state: TrainState, frontend,
@@ -98,19 +114,19 @@ def train_step(cfg: ExperimentConfig, state: TrainState, frontend,
     """One micro-step → metrics (device tensors: no host sync): ``loss``,
     ``clean_hr``, ``corrupt_hr`` (this rank's rows under data parallel)
     and ``grad_norm`` of this micro-batch's raw gradient (averaged over the
-    ranks)."""
+    data axis)."""
     device = next(iter(state.trainable.values())).device
-    axis = data_axis()
+    axis, group = data_axis(), data_group(state.mesh)
     mb = model_batch_from_host(frontend, batch, device)
     out = state.model.forward_pos_neg(mb, generator)
-    loss, aux = losses.compute_loss(cfg.loss, out, axis)
+    loss, aux = losses.compute_loss(cfg.loss, out, axis, group)
     params = list(state.trainable.values())
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(state.trainable.items(), grads)}
     if axis is not None:
-        collectives.all_reduce_mean_(list(grads.values()))
-    grad_norm = opt_lib.global_norm(grads.values())
+        collectives.all_reduce_mean_(list(grads.values()), group)
+    grad_norm = state.optimizer.global_norm(grads)
     state.optimizer.step(grads)
     state.step += 1
     t = cfg.loss.temperature
@@ -135,13 +151,13 @@ def _per_sample_eval_loss(cfg, aux: losses.LossAux, alignment_scores):
 
 @torch.no_grad()
 def eval_step(cfg: ExperimentConfig, model: DualEncoderModel, frontend,
-              batch: dict) -> dict:
+              batch: dict, mesh: Optional[mesh_lib.Mesh] = None) -> dict:
     """Per-batch sums and raw cosines (JAX ``make_eval_step``): ``loss_sum``
     is the training objective (the masked in-batch InfoNCE for
     ``kind='global'``, the pairwise CE otherwise), ``pairwise_loss_sum``
     the pairwise CE in both modes. Under data parallel the sums and cosines
-    are this rank's rows (the caller sums over ranks), each scored against
-    the whole batch's candidates for ``kind='global'``."""
+    are this rank's rows (the caller sums over ``mesh``'s data axis), each
+    scored against the whole batch's candidates for ``kind='global'``."""
     device = next(model.parameters()).device
     mb = model_batch_from_host(frontend, batch, device)
     out = model.forward_pos_neg(mb, None)
@@ -152,7 +168,7 @@ def eval_step(cfg: ExperimentConfig, model: DualEncoderModel, frontend,
     if cfg.loss.kind == "global":
         per_obj = losses.global_per_sample_masked(
             cfg.loss, out.text_pos, out.text_neg, out.audio, m,
-            out.alignment_scores, data_axis())
+            out.alignment_scores, data_axis(), data_group(mesh))
     else:
         per_obj = per_pair
     return {"loss_sum": torch.sum(per_obj * m),

@@ -99,14 +99,17 @@ def test_cuda_without_a_card_raises(tmp_path):
     pytest.param("mesh.num_data=2", ValueError,
                  r"mesh.num_data=2 but the process group has 1 rank",
                  id="mesh.num_data=2-data and tensor parallel"),
-    pytest.param("mesh.num_model=2", NotImplementedError,
-                 "tensor parallel training", id="mesh.num_model=2-data and "
-                 "tensor parallel"),
+    # one process cannot hold a model axis of two: JAX's make_mesh error
+    pytest.param("mesh.num_model=2", ValueError,
+                 "1 devices not divisible by model=2",
+                 id="mesh.num_model=2-data and tensor parallel"),
 ])
 def test_fields_the_loop_cannot_honour_raise(tmp_path, override, error,
                                              match):
-    """Data parallel is ported (parallel/mesh.py): the mesh must match the
-    process group, and tensor parallel is still refused."""
+    """Data and tensor parallel are ported (parallel/mesh.py): the mesh
+    must fit the process group, as JAX's ``make_mesh`` requires of its
+    devices (tests/test_torch_tensor_parallel.py runs the meshes that
+    fit)."""
     cfg = torch_train.build_config(
         ["preset=tiny", f"train.output_dir={tmp_path}", override])
     if error is None:

@@ -1,7 +1,8 @@
-"""Rank functions of tests/test_torch_parallel.py: each runs in a process of
-its own, spawned with ``torch.multiprocessing`` and joined to a gloo group
-through a ``FileStore`` (no port, so parallel test workers never collide).
-Nothing here imports JAX; each rank saves what the test compares with
+"""Rank functions of tests/test_torch_parallel.py and
+tests/test_torch_tensor_parallel.py: each runs in a process of its own,
+spawned with ``torch.multiprocessing`` and joined to a gloo group through a
+``FileStore`` (no port, so parallel test workers never collide). Nothing
+here imports JAX; each rank saves what the test compares with
 ``torch.save`` into the test's directory."""
 
 import os
@@ -13,6 +14,9 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from speech_transcript_embeddings_torch.models import audio_encoder as tae
+from speech_transcript_embeddings_torch.models import heads as theads
+from speech_transcript_embeddings_torch.models import text_encoder as tte
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
@@ -139,6 +143,9 @@ def loop_rank(rank, world, out, cfg):
     writes = []
     _watch_writes(cfg.train.output_dir, writes)
     res = loop.run_experiment(cfg, device="cpu")
+    if res.get("active") is False:      # left outside a shrunk mesh
+        _save(out, rank, {"active": False, "writes": writes})
+        return
     _save(out, rank, {
         "preempted": res.get("preempted"), "writes": writes,
         "step_log": res["step_log"],
@@ -146,6 +153,121 @@ def loop_rank(rank, world, out, cfg):
         "weights": {k: v.clone() for k, v in
                     res["state"].model.state_dict().items()}
         if "state" in res else None})
+
+
+# ---- tensor parallel --------------------------------------------------------
+
+# each module's place in the dual encoder: its parameters' names there,
+# which the sharding rule reads
+TP_PREFIX = {"conformer_block": "audio_encoder.layer_0.",
+             "text_encoder": "text_encoder.",
+             "projection": "text_projection.",
+             "cross_modal": "text_to_audio_attention.",
+             "word_alignment": "word_level_alignment."}
+
+
+def tp_module(name, spec, axis=None):
+    """One of the modules tests/test_torch_tensor_parallel.py splits, fp32,
+    on the model ``axis`` (None: whole)."""
+    if name == "conformer_block":
+        return tae.ConformerBlock(spec, torch.float32, axis=axis)
+    if name == "text_encoder":
+        return tte.TextEncoder(spec, torch.float32, axis=axis)
+    if name == "projection":
+        return theads.EnhancedProjection(*spec, axis=axis)
+    if name == "cross_modal":
+        return theads.CrossModalAttention(*spec, axis=axis)
+    return theads.WordLevelAlignment(*spec, axis=axis)
+
+
+def tp_call(name, module, inputs, masks):
+    """The module's output on ``inputs`` (one tensor: the alignment head's
+    three outputs flattened and joined)."""
+    if name == "conformer_block":
+        return module(inputs[0], masks[0])
+    if name == "text_encoder":
+        return module(masks[0], masks[1])
+    if name == "projection":
+        return module(inputs[0])
+    if name == "cross_modal":
+        return module(inputs[0], inputs[1], masks[0])
+    outs = module(inputs[0], inputs[1], masks[0], masks[1])
+    return torch.cat([o.reshape(o.shape[0], -1) for o in outs], dim=1)
+
+
+def tp_module_rank(rank, world, out, cases):
+    """Each case's module split over a model axis of every rank: forward
+    on the same inputs, backward of ⟨output, cotangent⟩; the output, the
+    inputs' gradients and this rank's shards' gradients."""
+    axis = mesh_lib.ModelAxis(world, rank)
+    got = {}
+    for name, (spec, weights, inputs, masks, cot) in cases.items():
+        module = tp_module(name, spec, axis)
+        at = TP_PREFIX[name]
+        module.load_state_dict({k: mesh_lib.shard_tensor(at + k, v, world,
+                                                         rank)
+                                for k, v in weights.items()})
+        xs = [torch.from_numpy(a).requires_grad_() for a in inputs]
+        y = tp_call(name, module, xs,
+                    [torch.from_numpy(m) for m in masks])
+        torch.autograd.backward(y, torch.from_numpy(cot))
+        got[name] = {"out": y.detach(), "inputs": [x.grad for x in xs],
+                     "grads": {k: p.grad for k, p in
+                               module.named_parameters()}}
+    _save(out, rank, got)
+
+
+def _tp_run(cfg, weights, batches, total_steps, dropout):
+    """The train step on ``cfg``'s mesh from whole ``weights``: each
+    micro-step's loss (the data axis's mean) and grad norm, and this rank's
+    trainable shards after; None on a rank outside the mesh."""
+    mesh = mesh_lib.make_mesh(cfg)
+    if not mesh.active:
+        return None
+    model = DualEncoderModel(cfg.model, param_dtype=torch.float32,
+                             axis=mesh.model_axis())
+    model.load_state_dict(mesh_lib.shard_state(weights, mesh))
+    state = ts.create_train_state(model, cfg, total_steps, mesh)
+    frontend = make_frontend(cfg.model.frontend)
+    gen = loop.dropout_generator(cfg.train.seed, torch.device("cpu"),
+                                 mesh.data_index) if dropout else None
+    metrics = []
+    for batch in batches:
+        m = ts.train_step(cfg, state, frontend,
+                          mesh_lib.shard_batch(mesh, batch), gen)
+        metrics.append({
+            "loss": loop._global_mean({"l": m["loss"]}, 1,
+                                      mesh.data_group)["l"],
+            "grad_norm": float(m["grad_norm"])})
+    return {"metrics": metrics, "count": state.optimizer.count,
+            "data_index": mesh.data_index, "model_index": mesh.model_index,
+            "trainable": {k: p.detach().clone()
+                          for k, p in state.trainable.items()}}
+
+
+def tp_step_rank(rank, world, out, cfgs, weights, batches, total_steps,
+                 dropout):
+    """``_tp_run`` for each config of ``cfgs`` in turn (every config's
+    mesh over the same ranks)."""
+    _save(out, rank, [_tp_run(cfg, weights, batches, total_steps, dropout)
+                      for cfg in cfgs])
+
+
+def eval_load_rank(rank, world, out, cfg, path, batch):
+    """``checkpoints.load_checkpoint`` of ``path`` on ``cfg``'s mesh (the
+    test phase's eval model): this rank's state and both embeddings of
+    ``batch``."""
+    from speech_transcript_embeddings_torch import checkpoints
+    mesh = mesh_lib.make_mesh(cfg)
+    _, model = checkpoints.load_checkpoint(path, "cpu", mesh)
+    features, amask = make_frontend(cfg.model.frontend)(
+        batch["waveform"], batch["num_samples"])
+    with torch.no_grad():
+        text, _ = model.encode_text(batch["input_ids_pos"],
+                                    batch["attention_mask_pos"])
+        audio, _ = model.encode_audio(features, amask)
+    _save(out, rank, {"state": model.state_dict(), "text": text,
+                      "audio": audio})
 
 
 def load(out, world):
