@@ -56,6 +56,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -95,12 +96,11 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms: the summed durations of the device
-    kernels it launches (torch.profiler), over ``iters`` calls after
-    ``warmup``. Unlike ``cuda_ms`` it does not count the gaps in which the
-    device waits for the host to launch the next kernel. A trace that lost
-    kernels (fewer than one a call) is taken again, twice at most."""
+def device_split(fn, iters=20, warmup=3):
+    """{kernel name: mean device ms a call} of the device kernels ``fn``
+    launches (torch.profiler), over ``iters`` calls after ``warmup``. A
+    trace that lost kernels (fewer than one a call) is taken again, twice
+    at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -114,9 +114,17 @@ def device_ms(fn, iters=20, warmup=3):
             torch.cuda.synchronize()
         rows = _device_rows(prof)
         if sum(calls for _, _, calls in rows) >= iters:
-            return sum(ms for ms, _, _ in rows) / iters
+            return {name: ms / iters for ms, name, _ in rows}
     raise RuntimeError("torch.profiler recorded fewer device kernels than "
                        "calls three times")
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of ``fn`` in ms: the summed durations of the device
+    kernels it launches (``device_split``). Unlike ``cuda_ms`` it does not
+    count the gaps in which the device waits for the host to launch the
+    next kernel."""
+    return sum(device_split(fn, iters, warmup).values())
 
 
 def phase0():
@@ -451,6 +459,59 @@ def phase3():
     return worst, times
 
 
+def _by_kernel_name(split):
+    """``device_split``'s {name: ms} under short names, without return
+    type, namespace and arguments (``flash_rel_bwd_dq_wgmma_kernel<64>``),
+    the times of names that shorten alike added."""
+    short = {}
+    for name, ms in split.items():
+        name = name.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].removeprefix("void ")[:60]
+        short[name] = short.get(name, 0.0) + ms
+    return short
+
+
+def _ptxas_report(pattern):
+    """'kernel: registers, spills' for each ptxas entry of the last build
+    (``_build/nvcc.log``) whose name holds ``pattern``."""
+    from speech_transcript_embeddings_torch.ops import _build
+    lines, report, entry = (_build.BUILD_DIR / "nvcc.log").read_text(
+        ).splitlines(), [], None
+    for ln in lines:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if pattern in ln else None
+        elif entry and "spill" in ln:
+            spill = ln.strip()
+        elif entry and "registers" in ln:
+            m = re.search(r"\d+([a-z_]+" + pattern + r")ILi(\d+)", entry)
+            report.append(f"{m[1]}<{m[2]}>: {ln.split(':', 1)[1].strip()}; "
+                          f"{spill}")
+            entry = None
+    return report
+
+
+def _sass_counts(pattern, ops=("HGMMA", "UTMALDG")):
+    """{kernel<HD>: {op: instructions}} in the built library's SASS
+    (``cuobjdump -sass``) for each function whose name holds
+    ``pattern``."""
+    from speech_transcript_embeddings_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"\d+([a-z_]+" + pattern + r")ILi(\d+)", ln)
+            name = f"{m[1]}<{m[2]}>" if m else None
+            if name:
+                counts[name] = dict.fromkeys(ops, 0)
+        elif name:
+            for op in ops:
+                counts[name][op] += f" {op}" in ln
+    return counts
+
+
 def _max_rel_err(a, b):
     """max|a − b| / max|b| (fp32)."""
     a, b = a.float(), b.float()
@@ -461,12 +522,15 @@ def phase6():
     """Flash backward (K4) against its plain twin: at every T_PADS in bf16
     (tensor cores) and fp32 (CUDA cores), plus hd 128 and a clip with no
     valid frame. Tolerance: max error over max|twin| per gradient, 2e-2 in
-    bf16 and 1e-4 in fp32 (phase 3's forward tolerances). Then, at the
-    training shapes, both kernels (the CUDA-core kernel's bf16
-    instantiation is reached only here) held against the twin (bf16
-    tolerance) and timed beside the twin and SDPA's backward (no bias, no
-    mask: a yardstick), by device time and back-to-back calls as in
-    phase 3."""
+    bf16 and 1e-4 in fp32 (phase 3's forward tolerances); each bf16 case
+    launched twice, the two results bit-identical. Then, at the training
+    shapes, both kernels (the CUDA-core kernel's bf16 instantiation is
+    reached only here) held against the twin (bf16 tolerance) and timed
+    beside the twin and SDPA's backward (no bias, no mask: a yardstick), by
+    device time (the tensor-core call also kernel by kernel) and
+    back-to-back calls as in phase 3. Prints the wgmma pair's ptxas report
+    and its HGMMA and UTMALDG instruction counts (cuobjdump), and fails
+    where a kernel has none."""
     import torch
     import torch.nn.functional as F
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
@@ -506,6 +570,22 @@ def phase6():
             kernel=kernel, dtype=name, t_pad=t, B=b, heads=nh, hd=hd,
             kind=kind, errs=errs)
 
+    def same_bits(kernel, got, args, what):
+        again = fa._bwd_launch(kernel, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash bwd {kernel} {what}: two launches "
+                                 f"on the same inputs differ")
+
+    for ln in _ptxas_report("wgmma_kernel"):
+        log(6, f"ptxas {ln}", ptxas=ln)
+    sass = _sass_counts("wgmma_kernel")
+    for kname, n in sass.items():
+        log(6, f"SASS {kname}: " + ", ".join(f"{op} {c}" for op, c in
+                                             n.items()), sass={kname: n})
+    if not sass or any(0 in n.values() for n in sass.values()):
+        raise AssertionError(f"wgmma kernels without HGMMA or UTMALDG: "
+                             f"{sass}")
     for name, t, b, nh, hd, kind, route in cases:
         dtype = getattr(torch, name)
         q, k, v, dout, e, mask = _flash_inputs(
@@ -513,11 +593,13 @@ def phase6():
         kw = dict(num_heads=nh, left_max=left)
         kernel = fa.flash_kernel(dtype, hd) if route == "auto" else route
         out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
-        got = fa._bwd_launch(kernel, q, k, v, e, mask, out, lse, dout, nh,
-                             left)
+        args = (q, k, v, e, mask, out, lse, dout, nh, left)
+        got = fa._bwd_launch(kernel, *args)
         ref = fa.rel_attention_bwd_reference(q, k, v, e, mask, out, lse,
                                              dout, **kw)
         check(kernel, got, ref, name, t, b, nh, hd, kind)
+        if kernel == "mma":
+            same_bits(kernel, got, args, f"t_pad {t} hd {hd} {kind}")
         del q, k, v, dout, out, lse, got, ref
         torch.cuda.empty_cache()
     nh, hd = 16, 64
@@ -528,11 +610,13 @@ def phase6():
         out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
         ref = fa.rel_attention_bwd_reference(q, k, v, e, mask, out, lse,
                                              dout, **kw)
+        args = (q, k, v, e, mask, out, lse, dout, nh, left)
         for kernel in ("mma", "simt"):
-            got = fa._bwd_launch(kernel, q, k, v, e, mask, out, lse, dout,
-                                 nh, left)
+            got = fa._bwd_launch(kernel, *args)
             check(kernel, got, ref, "bfloat16", t, bh // nh, nh, hd,
                   "ragged")
+            if kernel == "mma":
+                same_bits(kernel, got, args, f"B·h {bh} t_pad {t}")
         del ref, got
         torch.cuda.empty_cache()
         mma = lambda: fa._bwd_launch("mma", q, k, v, e, mask, out, lse,  # noqa: E731
@@ -549,8 +633,13 @@ def phase6():
         sdpa = lambda: torch.autograd.grad(o4, (q4, k4, v4), d4,  # noqa: E731
                                            retain_graph=True)
         b_ms, b_by = flash_bound(mask, nh, hd, 73, torch.bfloat16, True)
+        split = _by_kernel_name(device_split(mma, iters=10))
+        for kname, kms in split.items():
+            log(6, f"  (B·h {bh}, t_pad {t}) tensor-core wrapper call, "
+                   f"device time: {kms:.4f} ms {kname}")
         times[(bh, t)] = dict(
-            ms=device_ms(mma, iters=10), simt_ms=device_ms(simt, iters=10),
+            ms=sum(split.values()), split=split,
+            simt_ms=device_ms(simt, iters=10),
             plain_ms=device_ms(plain, iters=5, warmup=1),
             sdpa_ms=device_ms(sdpa, iters=10), call_ms=call_ms,
             simt_call_ms=simt_call_ms, bound_ms=b_ms, bound_by=b_by)
@@ -1342,7 +1431,7 @@ def _hold_step(cfg, got, want, model, got_name, want_name):
         share_beyond_1e5=far, unresolved=noise, moved=moved)}
 
 
-FLASH_KERNELS = ("flash_rel_fwd_mma", "flash_rel_bwd_mma", "flash_rel_fwd",
+FLASH_KERNELS = ("flash_rel_fwd_mma", "flash_rel_bwd_wgmma", "flash_rel_fwd",
                  "flash_rel_bwd")
 N_PARAMS = 863_886_658
 N_TRAINABLE = 354_846_082
@@ -1403,7 +1492,7 @@ def phase8():
                                  f"{cfg.model.audio.remat_policy}")
         forwards = micro + n_eval + res["test_batches"] + \
             res["retrieval_batches"]
-        want = {"flash_rel_bwd_mma": layers * micro,
+        want = {"flash_rel_bwd_wgmma": layers * micro,
                 "flash_rel_fwd_mma": layers * forwards,
                 "flash_rel_fwd": 0, "flash_rel_bwd": 0,
                 "log_mel": forwards, "log_mel_normalize": forwards}
@@ -1568,7 +1657,7 @@ def phase9():
         forwards = micro + ep["eval_batches"] + res["test_batches"] + \
             res["retrieval_batches"]
         layers = cfg.model.audio.num_layers
-        want = {"flash_rel_bwd_mma": layers * micro,
+        want = {"flash_rel_bwd_wgmma": layers * micro,
                 "flash_rel_fwd_mma": layers * forwards,
                 "flash_rel_fwd": 0, "flash_rel_bwd": 0,
                 "log_mel": forwards, "log_mel_normalize": forwards}
@@ -1976,7 +2065,7 @@ def phase10():
         layers = flagship_model_config().audio.num_layers
         want = {"log_mel": 2, "log_mel_normalize": 2,
                 "flash_rel_fwd_mma": 2 * layers,
-                "flash_rel_bwd_mma": 2 * layers,
+                "flash_rel_bwd_wgmma": 2 * layers,
                 "flash_rel_fwd": 0, "flash_rel_bwd": 0}
         if res.get("preempted", {}).get("batches_done") != 2 or \
                 len(losses) != 2 or not np.isfinite(losses).all() or \
@@ -2271,7 +2360,7 @@ def _dp_worker_b(out):
     forwards = micro + ep["eval_batches"] + res["test_batches"] + \
         res["retrieval_batches"]
     layers = cfg.model.audio.num_layers
-    want = {"flash_rel_bwd_mma": layers * micro,
+    want = {"flash_rel_bwd_wgmma": layers * micro,
             "flash_rel_fwd_mma": layers * forwards,
             "flash_rel_fwd": 0, "flash_rel_bwd": 0,
             "log_mel": forwards, "log_mel_normalize": forwards}
@@ -2488,7 +2577,7 @@ def _phase12a(tmp):
     launches = {}
     for dtype, want_kernels, tol in (
             ("float32", {"flash_rel_fwd", "flash_rel_bwd"}, 1e-6),
-            ("bfloat16", {"flash_rel_fwd_mma", "flash_rel_bwd_mma"}, 2e-2)):
+            ("bfloat16", {"flash_rel_fwd_mma", "flash_rel_bwd_wgmma"}, 2e-2)):
         cfg = _tp_small_cfg(dtype)
         model = _small_model(cfg)
         got = _merge_run([r[dtype] for r in ranks], model)
@@ -2738,7 +2827,7 @@ def _tp_worker_b(out, ref):
     forwards = micro + ep["eval_batches"] + res["test_batches"] + \
         res["retrieval_batches"]
     layers = cfg.model.audio.num_layers
-    want = {"flash_rel_bwd_mma": layers * micro,
+    want = {"flash_rel_bwd_wgmma": layers * micro,
             "flash_rel_fwd_mma": layers * forwards,
             "flash_rel_fwd": 0, "flash_rel_bwd": 0,
             "log_mel": forwards, "log_mel_normalize": forwards}
@@ -3060,11 +3149,14 @@ def main():
              237),
             ("flash_rel_fwd", "simt_ms", flash_err["simt"], fwd_times, fwd_at,
              237),
-            ("flash_rel_bwd_mma", "ms", bwd_abs_err["mma"], bwd_times, bwd_at,
+            ("flash_rel_bwd_wgmma", "ms", bwd_abs_err["mma"], bwd_times, bwd_at,
              278),
             ("flash_rel_bwd", "simt_ms", bwd_abs_err["simt"], bwd_times,
              bwd_at, 278)):
-        src = "flash_rel_fwd.cu" if "fwd" in name else "flash_rel_bwd.cu"
+        src = {"flash_rel_fwd_mma": "flash_rel_fwd.cu",
+               "flash_rel_fwd": "flash_rel_fwd.cu",
+               "flash_rel_bwd_wgmma": "flash_rel_bwd_sm90.cu",
+               "flash_rel_bwd": "flash_rel_bwd.cu"}[name]
         tm = times[at]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{REPO}/csrc/{src}",

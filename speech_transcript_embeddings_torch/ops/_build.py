@@ -36,7 +36,7 @@ _SIGNATURES = {
                           _I, _I, _F, _I, _I, _P],
     "ste_flash_rel_bwd": [_P] * 13 + [_I] * 7 + [_F, _F, _I, _I, _P],
     "ste_flash_rel_fwd_mma": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-    "ste_flash_rel_bwd_mma": [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P],
+    "ste_flash_rel_bwd_wgmma": [_P] * 15 + [_I] * 7 + [_F, _F, _I, _P],
 }
 
 

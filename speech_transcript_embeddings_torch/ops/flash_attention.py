@@ -13,12 +13,13 @@ for the backward. Same signature and layout as the JAX function: q, k, v
 ``[B·num_heads, T, hd]``, E ``[num_pos, hd]``, ``kv_mask [B, T]`` a
 contiguous-prefix mask reduced to one valid length per batch row.
 
-Each direction has two CUDA kernels (``csrc/flash_rel_fwd.cu``, the
-backward pair in ``csrc/flash_rel_bwd.cu``): a tensor-core one for bf16
-with a head dim that is a multiple of 16 (the conformer's case) and a
-CUDA-core one for fp32 and other head dims; ``flash_kernel`` is the rule
-that picks one, and ``LAUNCHES`` counts each kernel's launches. CPU tensors
-take the plain twins.
+Each direction has two CUDA routes: a tensor-core one for bf16 with a head
+dim that is a multiple of 16 (the conformer's case) and a CUDA-core one for
+fp32 and other head dims (``csrc/flash_rel_fwd.cu``; the backward pair in
+``csrc/flash_rel_bwd.cu``, its tensor-core pair on Hopper's wgmma and TMA
+in ``csrc/flash_rel_bwd_sm90.cu``); ``flash_kernel`` is the rule that picks
+one, and ``LAUNCHES`` counts each kernel's launches. CPU tensors take the
+plain twins.
 
 ``flash_attention`` is differentiable: its backward is the K4 kernel pair
 for CUDA tensors and ``rel_attention_bwd_reference`` (the same math in
@@ -259,8 +260,8 @@ def flash_attention_fwd(q, k, v, dist_embedding, kv_mask, *,
 
 def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
                 num_heads, left_max):
-    """Launch backward kernel pair ``kernel`` ("mma" or "simt") → (dq, dk,
-    dv, dE)."""
+    """Launch backward kernel pair ``kernel`` ("mma": the wgmma pair, or
+    "simt") → (dq, dk, dv, dE)."""
     _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
     _require_cuda("flash_attention_bwd", q, k, v, dist_embedding, kv_mask,
                   out, lse, dout)
@@ -272,10 +273,6 @@ def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
     q, k, v, e = (_aligned(x) for x in (q, k, v, dist_embedding))
     do = _aligned(dout.to(q.dtype))
     lse = lse.detach().float().contiguous()
-    # dd = rowsum(dO∘O) in fp32 (outside the kernel, as in the JAX wrapper);
-    # bf16·bf16 is exact in fp32, and the mixed-dtype product casts O on the
-    # fly instead of materialising an fp32 copy of it
-    dd = torch.sum(do.float() * out.detach(), dim=-1).contiguous()
     lengths = _lengths(kv_mask).contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     q_tiles = -(-t // 64)                   # the kernels' query tile
@@ -285,22 +282,30 @@ def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
     lib = _build.library()
     if kernel == "mma":
         if flash_kernel(q.dtype, hd) != "mma":
-            raise ValueError(f"flash_rel_bwd_mma takes bf16 with hd a "
+            raise ValueError(f"flash_rel_bwd_wgmma takes bf16 with hd a "
                              f"multiple of 16 ≤ {MAX_HEAD_DIM}: {q.dtype}, "
                              f"hd {hd}")
+        # scratch that kernel A writes and kernel B reads: q_s, qE (bf16,
+        # exact) and dd = rowsum(dO∘O)
+        o = _aligned(out.to(q.dtype))
         q_s = torch.empty_like(q)
-        qe = torch.empty((bh, t, _np_pad(num_pos)), dtype=torch.float32,
+        qe = torch.empty((bh, t, _np_pad(num_pos)), dtype=q.dtype,
                          device=q.device)
-        code = lib.ste_flash_rel_bwd_mma(
+        dd = torch.empty((bh, t), dtype=torch.float32, device=q.device)
+        code = lib.ste_flash_rel_bwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
-            lengths.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_s.data_ptr(),
-            qe.data_ptr(), de_part.data_ptr(), bh, t, _t_pad(t), hd, num_pos,
-            left_max, num_heads, float(_scale(q)), 1.0 / math.sqrt(hd),
-            device, stream)
-        _build.check(code, "ste_flash_rel_bwd_mma")
-        LAUNCHES["flash_rel_bwd_mma"] += 1
+            qe.data_ptr(), dd.data_ptr(), de_part.data_ptr(), bh, t,
+            _t_pad(t), hd, num_pos, left_max, num_heads, float(_scale(q)),
+            1.0 / math.sqrt(hd), device, stream)
+        _build.check(code, "ste_flash_rel_bwd_wgmma")
+        LAUNCHES["flash_rel_bwd_wgmma"] += 1
     else:
+        # dd = rowsum(dO∘O) in fp32 (outside the kernel, as in the JAX
+        # wrapper); the mixed-dtype product casts O on the fly instead of
+        # materialising an fp32 copy of it
+        dd = torch.sum(do.float() * out.detach(), dim=-1).contiguous()
         qe = torch.empty((bh, t, num_pos), dtype=torch.float32,
                          device=q.device)
         code = lib.ste_flash_rel_bwd(

@@ -294,15 +294,19 @@ def test_module_flash_matches_plain_path():
 
 # ---- the tensor-core kernels' tile schedule, rehearsed on the CPU ----------
 #
-# A test-only emulation of csrc/flash_rel_fwd.cu and csrc/flash_rel_bwd.cu's
-# bf16 kernels: the same tiles (a warp's 16 query or key rows against 64
-# columns), the same band classification (a tile whose every j − i ≤ −L
-# or ≥ R takes a row-constant bias, whose gradient is the row sum of ds),
-# the same skip of the keys past a clip's length, the same online softmax
-# per key tile and the same bf16 rounding points, in fp32 torch ops.
+# A test-only emulation of the bf16 kernels of csrc/flash_rel_fwd.cu (the
+# mma.sync forward) and csrc/flash_rel_bwd_sm90.cu (the wgmma backward
+# pair): the same tiles (blocks of 64 query or key rows, each warp's 16 rows
+# against steps of 64 key columns forward, 32 columns backward), the same band
+# classification (a warp's step whose every j − i ≤ −L or ≥ R takes a
+# row-constant bias, whose gradient is the row sum of ds), the same skip of
+# the keys past a clip's length, the same online softmax per key tile, the
+# same bf16 rounding points and scratch (q_s, qE in bf16, dd summed in
+# kernel A's order), in fp32 torch ops.
 
 EL, ER = 64, 8                     # the conformer's band
-TILE, WARP_ROWS, COLS = 64, 16, 64     # COLS: a warp's step at hd ≤ 64
+TILE, WARP_ROWS = 64, 16          # rows a block owns, rows a warp owns
+BWD_COLS = 32                      # columns of a backward step (kN)
 NEG = -1e30
 
 
@@ -350,15 +354,32 @@ def _emulate_fwd(q, k, v, e, lengths, nh):
     return out, lse
 
 
+def _dd_kernel_a(dout, out):
+    """dd = rowsum(dO∘O) as kernel A sums it: two threads a row, each adding
+    its half of the columns in order in fp32 (a bf16·bf16 product is exact
+    there, so this is the kernel's fmaf chain), then half 0 + half 1."""
+    hd = dout.shape[-1]
+    halves = []
+    for cols in (range(hd // 2), range(hd // 2, hd)):
+        acc = torch.zeros(dout.shape[:-1])
+        for c in cols:
+            acc = acc + dout[..., c] * out[..., c]
+        halves.append(acc)
+    return halves[0] + halves[1]
+
+
 def _emulate_bwd(q, k, v, e, lengths, nh, out, lse, dout):
-    """(dq, dk, dv, dE) of one call of the backward kernel pair: kernel A
-    per (row, 16 queries) over 64-key steps, kernel B per (row, 16 keys)
-    over 64-query steps."""
+    """(dq, dk, dv, dE) of one call of the backward pair: kernel A a block
+    per (row, 64 queries), each warp's 16 queries over the key tiles of 32;
+    kernel B a block per (row, 64 keys), each warp's 16 keys over the query
+    tiles of 32, reading q_s, qE (bf16) and dd from kernel A's scratch."""
     bh, t, hd = q.shape
     t_pad, lr, num_pos = fa._t_pad(t), EL + ER, e.shape[0]
-    qs = _bf(q * _bf(torch.tensor(1.0 / np.sqrt(hd))))
-    qe = _bf(qs @ e.T)
-    dd = (dout * out).sum(-1)                                # [bh, t]
+    cols_step = BWD_COLS
+    qs = _bf(q * _bf(torch.tensor(1.0 / np.sqrt(hd))))       # scratch
+    qe_scratch = (qs @ e.T).to(torch.bfloat16)               # scratch
+    qe = qe_scratch.float()
+    dd = _dd_kernel_a(dout, out)                             # scratch
     lse = lse[..., 0]
     dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
     de = torch.zeros(num_pos, hd)
@@ -366,68 +387,74 @@ def _emulate_bwd(q, k, v, e, lengths, nh, out, lse, dout):
         limit = lengths[row // nh]
         n_keys = limit if limit > 0 else t
         dqe = torch.zeros(t, num_pos)
-        for i0 in range(0, t, WARP_ROWS):                    # kernel A
-            rows = torch.arange(i0, min(i0 + WARP_ROWS, t))
-            acc = torch.zeros(len(rows), hd)
-            lo = torch.zeros(len(rows))
-            hi = torch.zeros(len(rows))
-            for j0 in range(0, n_keys, COLS):
-                cols = torch.arange(j0, min(j0 + COLS, t))
-                s = qs[row, rows] @ k[row, cols].T
-                dp = dout[row, rows] @ v[row, cols].T
-                all_lo = j0 + COLS - 1 - i0 <= -EL
-                all_hi = j0 - (i0 + WARP_ROWS - 1) >= ER
-                if j0 + COLS <= limit and (all_lo or all_hi):
-                    b = qe[row, rows][:, [0 if all_lo else lr]]
-                    ds = torch.exp(s + b - lse[row, rows, None]) * (
-                        dp - dd[row, rows, None])
-                    if all_lo:
-                        lo += ds.sum(1)
+        for b0 in range(0, t, TILE):                         # kernel A
+            for i0 in range(b0, min(b0 + TILE, t), WARP_ROWS):
+                rows = torch.arange(i0, min(i0 + WARP_ROWS, t))
+                acc = torch.zeros(len(rows), hd)
+                lo = torch.zeros(len(rows))
+                hi = torch.zeros(len(rows))
+                for j0 in range(0, n_keys, cols_step):
+                    cols = torch.arange(j0, min(j0 + cols_step, t))
+                    s = qs[row, rows] @ k[row, cols].T
+                    dp = dout[row, rows] @ v[row, cols].T
+                    all_lo = j0 + cols_step - 1 - i0 <= -EL
+                    all_hi = j0 - (i0 + WARP_ROWS - 1) >= ER
+                    if j0 + cols_step <= limit and (all_lo or all_hi):
+                        b = qe[row, rows][:, [0 if all_lo else lr]]
+                        ds = torch.exp(s + b - lse[row, rows, None]) * (
+                            dp - dd[row, rows, None])
+                        if all_lo:
+                            lo += ds.sum(1)
+                        else:
+                            hi += ds.sum(1)
                     else:
-                        hi += ds.sum(1)
-                else:
-                    c = torch.clamp(cols[None] - rows[:, None], -EL, ER) + EL
-                    s = torch.where(cols[None] >= limit, NEG,
-                                    s + torch.gather(qe[row, rows], 1, c))
-                    ds = torch.exp(s - lse[row, rows, None]) * (
-                        dp - dd[row, rows, None])
-                    lo += torch.where(c == 0, ds, 0.0).sum(1)
-                    hi += torch.where(c == lr, ds, 0.0).sum(1)
-                    inner = (c > 0) & (c < lr)
-                    dqe[rows] += torch.zeros(len(rows), num_pos).scatter_add_(
-                        1, c, torch.where(inner, ds, 0.0))
-                acc += _bf(ds) @ k[row, cols]
-            dqe[rows, 0] += lo
-            dqe[rows, lr] += hi
-            p_pad = torch.exp(NEG - lse[row, rows])
-            for j in range(t, t_pad):                        # padded keys
-                c = torch.clamp(j - rows, -EL, ER) + EL
-                dqe[rows, c] += -p_pad * dd[row, rows]
-            acc += _bf(dqe[rows]) @ e
-            dq[row, rows] = _bf(_bf(acc) * (1.0 / np.sqrt(hd)))
+                        c = torch.clamp(cols[None] - rows[:, None], -EL,
+                                        ER) + EL
+                        s = torch.where(cols[None] >= limit, NEG,
+                                        s + torch.gather(qe[row, rows], 1, c))
+                        ds = torch.exp(s - lse[row, rows, None]) * (
+                            dp - dd[row, rows, None])
+                        lo += torch.where(c == 0, ds, 0.0).sum(1)
+                        hi += torch.where(c == lr, ds, 0.0).sum(1)
+                        inner = (c > 0) & (c < lr)
+                        dqe[rows] += torch.zeros(
+                            len(rows), num_pos).scatter_add_(
+                                1, c, torch.where(inner, ds, 0.0))
+                    acc += _bf(ds) @ k[row, cols]
+                dqe[rows, 0] += lo
+                dqe[rows, lr] += hi
+                p_pad = torch.exp(NEG - lse[row, rows])
+                for j in range(t, t_pad):                    # padded keys
+                    c = torch.clamp(j - rows, -EL, ER) + EL
+                    dqe[rows, c] += -p_pad * dd[row, rows]
+                acc += _bf(dqe[rows]) @ e
+                dq[row, rows] = _bf(_bf(acc) * (1.0 / np.sqrt(hd)))
         de += dqe.T @ qs[row]
-        for j0 in range(0, t, WARP_ROWS):                    # kernel B
-            keys = torch.arange(j0, min(j0 + WARP_ROWS, t))
-            if limit > 0 and j0 >= limit:
+        for b0 in range(0, t, TILE):                         # kernel B
+            if limit > 0 and b0 >= limit:
                 continue                                     # dk = dv = 0
-            ak, av = torch.zeros(len(keys), hd), torch.zeros(len(keys), hd)
-            for i0 in range(0, t, COLS):
-                qr = torch.arange(i0, min(i0 + COLS, t))
-                s = k[row, keys] @ qs[row, qr].T             # [keys, queries]
-                dp = v[row, keys] @ dout[row, qr].T
-                all_lo = j0 + WARP_ROWS - 1 - i0 <= -EL
-                all_hi = j0 - (i0 + COLS - 1) >= ER
-                if j0 + WARP_ROWS <= limit and (all_lo or all_hi):
-                    s = s + qe[row, qr][:, 0 if all_lo else lr][None]
-                else:
-                    c = torch.clamp(keys[:, None] - qr[None], -EL, ER) + EL
-                    s = torch.where(keys[:, None] >= limit, NEG, s + torch.gather(
-                        qe[row, qr].T, 0, c))
-                p = torch.exp(s - lse[row, qr][None])
-                ds = p * (dp - dd[row, qr][None])
-                av += _bf(p) @ dout[row, qr]
-                ak += _bf(ds) @ qs[row, qr]
-            dk[row, keys], dv[row, keys] = _bf(ak), _bf(av)
+            for j0 in range(b0, min(b0 + TILE, t), WARP_ROWS):
+                keys = torch.arange(j0, min(j0 + WARP_ROWS, t))
+                ak = torch.zeros(len(keys), hd)
+                av = torch.zeros(len(keys), hd)
+                for iq in range(0, t, cols_step):
+                    qr = torch.arange(iq, min(iq + cols_step, t))
+                    s = k[row, keys] @ qs[row, qr].T         # [keys, queries]
+                    dp = v[row, keys] @ dout[row, qr].T
+                    all_lo = j0 + WARP_ROWS - 1 - iq <= -EL
+                    all_hi = j0 - (iq + cols_step - 1) >= ER
+                    if j0 + WARP_ROWS <= limit and (all_lo or all_hi):
+                        s = s + qe[row, qr][:, 0 if all_lo else lr][None]
+                    else:
+                        c = torch.clamp(keys[:, None] - qr[None], -EL,
+                                        ER) + EL
+                        s = torch.where(keys[:, None] >= limit, NEG,
+                                        s + torch.gather(qe[row, qr].T, 0, c))
+                    p = torch.exp(s - lse[row, qr][None])
+                    ds = p * (dp - dd[row, qr][None])
+                    av += _bf(p) @ dout[row, qr]
+                    ak += _bf(ds) @ qs[row, qr]
+                dk[row, keys], dv[row, keys] = _bf(ak), _bf(av)
     return dq, dk, dv, de
 
 
@@ -443,16 +470,19 @@ def _bf_inputs(lengths, t, seed, hd=16):
     return q, k, v, e, mask, dout
 
 
-@pytest.mark.parametrize("t,lengths", [(150, (150, 97)), (300, (300, 0)),
-                                       (300, (211, 300))],
-                         ids=["t150_ragged", "t300_zero_length_clip",
-                              "t300_ragged"])
-def test_mma_tile_schedule_matches_twins(t, lengths):
+@pytest.mark.parametrize("t,lengths,hd", [
+    (150, (150, 97), 16), (300, (300, 0), 16), (300, (211, 300), 16),
+    (100, (37, 0), 16), (200, (200, 131), 80)],
+    ids=["t150_ragged", "t300_zero_length_clip", "t300_ragged",
+         "t100_short_and_zero_length_clips", "t200_ragged_hd80"])
+def test_mma_tile_schedule_matches_twins(t, lengths, hd):
     """The emulated schedule against ``rel_attention_reference`` (out within
     2e-2, lse within 1e-3: phase 3's tolerances) and ``rel_attention_bwd_
     reference`` (each gradient within 2e-2 of its largest element: phase
-    6's), in bf16 at L = 64, R = 8."""
-    q, k, v, e, mask, dout = _bf_inputs(lengths, t, seed=t + lengths[1])
+    6's), in bf16 at L = 64, R = 8. No t here is a multiple of the 64- or
+    32-row tiles; hd 80 is the kernels' two-chunk case."""
+    q, k, v, e, mask, dout = _bf_inputs(lengths, t, seed=t + lengths[1],
+                                        hd=hd)
     kw = dict(num_heads=NH, left_max=EL)
     ref, ref_lse = fa.rel_attention_reference(q, k, v, e, mask, **kw)
     out, lse = _emulate_fwd(*(x.float() for x in (q, k, v, e)), lengths, NH)

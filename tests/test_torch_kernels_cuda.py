@@ -156,7 +156,7 @@ def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left,
     mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
     kw = dict(num_heads=nh, left_max=left)
     out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
-    name = "flash_rel_bwd" + ("_mma" if fa.flash_kernel(dtype, hd) == "mma"
+    name = "flash_rel_bwd" + ("_wgmma" if fa.flash_kernel(dtype, hd) == "mma"
                               else "")
     before = fa.LAUNCHES[name]
     got = fa.flash_attention_bwd(q, k, v, e, mask, out, lse, dout, **kw)
@@ -170,6 +170,29 @@ def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left,
         scale = r.float().abs().max().clamp_min(1e-30)
         err = ((a.float() - r.float()).abs().max() / scale).item()
         assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("t,hd,nh,left,right,short", [
+    c for c in FLASH_CASES if c[1] % 16 == 0], ids=[
+        i for c, i in zip(FLASH_CASES, FLASH_IDS) if c[1] % 16 == 0])
+def test_flash_backward_wgmma_pair_is_deterministic(cuda, t, hd, nh, left,
+                                                    right, short):
+    """The bf16 backward pair (no atomics, fixed reduction orders) gives
+    the same bits for the same inputs, launch after launch."""
+    g = torch.Generator().manual_seed(t + hd + short + 1)
+    b = 2
+    q, k, v, dout = (torch.randn(b * nh, t, hd, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(4))
+    e = (torch.randn(left + right + 1, hd, generator=g) * 0.3).to(
+        cuda, torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
+    kw = dict(num_heads=nh, left_max=left)
+    out, lse = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
+    first = fa.flash_attention_bwd(q, k, v, e, mask, out, lse, dout, **kw)
+    second = fa.flash_attention_bwd(q, k, v, e, mask, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dq", "dk", "dv", "dE"), first, second):
+        assert torch.equal(a, b_), name
 
 
 def test_flash_autograd_uses_both_kernels(cuda):
@@ -210,5 +233,5 @@ def test_main_path_shapes_launch_the_mma_kernels(cuda):
     torch.cuda.synchronize()
     grown = {name: n - before.get(name, 0) for name, n in fa.LAUNCHES.items()
              if n != before.get(name, 0)}
-    assert grown == {"flash_rel_fwd_mma": 1, "flash_rel_bwd_mma": 1}
+    assert grown == {"flash_rel_fwd_mma": 1, "flash_rel_bwd_wgmma": 1}
 
