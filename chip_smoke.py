@@ -98,9 +98,12 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def device_split(fn, iters=20, warmup=3):
     """{kernel name: mean device ms a call} of the device kernels ``fn``
-    launches (torch.profiler), over ``iters`` calls after ``warmup``. A
-    trace that lost kernels (fewer than one a call) is taken again, twice
-    at most."""
+    launches (torch.profiler), over ``iters`` calls after ``warmup``: each
+    kernel's mean over its recorded launches, times its launches a call. A
+    trace can miss one launch (seen on the card: 19 of 20 recorded in each
+    trace after phase 2), so the mean is not taken over ``iters``; a trace
+    that lost more (fewer kernels than calls less one) is taken again,
+    twice at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -113,10 +116,11 @@ def device_split(fn, iters=20, warmup=3):
                 fn()
             torch.cuda.synchronize()
         rows = _device_rows(prof)
-        if sum(calls for _, _, calls in rows) >= iters:
-            return {name: ms / iters for ms, name, _ in rows}
+        if sum(calls for _, _, calls in rows) >= iters - 1:
+            return {name: ms / calls * max(1, round(calls / iters))
+                    for ms, name, calls in rows}
     raise RuntimeError("torch.profiler recorded fewer device kernels than "
-                       "calls three times")
+                       "calls less one three times")
 
 
 def device_ms(fn, iters=20, warmup=3):
@@ -382,7 +386,11 @@ def phase3():
     path's shapes, both kernels held against the twin (bf16 tolerances) and
     timed beside the twin and SDPA (no bias, no mask: not the same
     function, a yardstick): device time by torch.profiler (``device_ms``),
-    and the time a call takes back to back (CUDA events) beside it."""
+    and the time a call takes back to back (CUDA events) beside it. Every
+    tensor-core case is launched twice, the two results bit-identical.
+    Prints the wgmma kernel's ptxas report and its HGMMA and UTMALDG
+    instruction counts (cuobjdump), and fails where an instantiation has
+    none."""
     import torch
     import torch.nn.functional as F
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
@@ -397,12 +405,32 @@ def phase3():
               (*bf, "auto", 256, hd, "zero_length"),
               (*f32, "auto", 256, hd, "zero_length"),
               (*bf, "simt", 768, hd, "ragged")]
+
+    def same_bits(kernel, got, args, what):
+        again = fa._fwd_launch(kernel, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash fwd {kernel} {what}: two launches "
+                                 f"on the same inputs differ")
+
+    for ln in _ptxas_report("fwd_wgmma_kernel"):
+        log(3, f"ptxas {ln}", ptxas=ln)
+    sass = _sass_counts("fwd_wgmma_kernel")
+    for kname, n in sass.items():
+        log(3, f"SASS {kname}: " + ", ".join(f"{op} {c}" for op, c in
+                                             n.items()), sass={kname: n})
+    if len(sass) != 8 or any(0 in n.values() for n in sass.values()):
+        raise AssertionError(f"wgmma forward instantiations without HGMMA "
+                             f"or UTMALDG: {sass}")
     for dtype, tol, route, t, d, kind in cases:
         name = str(dtype).split(".")[-1]
         q, k, v, _, e, mask = _flash_inputs(g, 2 * nh, t, d, dtype, 0.02,
                                             zero=kind == "zero_length")
         kernel = fa.flash_kernel(dtype, d) if route == "auto" else route
         out, lse = fa._fwd_launch(kernel, q, k, v, e, mask, nh, left)
+        if kernel == "mma":
+            same_bits(kernel, (out, lse), (q, k, v, e, mask, nh, left),
+                      f"t_pad {t} hd {d} {kind}")
         ref, ref_lse = fa.rel_attention_reference(q, k, v, e, mask, **kw)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
@@ -427,6 +455,9 @@ def phase3():
             torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2,
                                        atol=2e-2)
             torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-3)
+            if kernel == "mma":
+                same_bits(kernel, (out, lse), (q, k, v, e, mask, nh, left),
+                          f"B·h {bh} t_pad {t}")
             worst[kernel] = max(worst[kernel], err)
             log(3, f"flash fwd {kernel} bfloat16 t_pad {t} B·h {bh} hd={hd} "
                    f"ragged: err {err:.2e} (tol 0.02), lse err "
@@ -473,13 +504,14 @@ def _by_kernel_name(split):
 
 def _ptxas_report(pattern):
     """'kernel: registers, spills' for each ptxas entry of the last build
-    (``_build/nvcc.log``) whose name holds ``pattern``."""
+    (``_build/nvcc.log``) whose name matches the regular expression
+    ``pattern`` (lower case and underscores)."""
     from speech_transcript_embeddings_torch.ops import _build
     lines, report, entry = (_build.BUILD_DIR / "nvcc.log").read_text(
         ).splitlines(), [], None
     for ln in lines:
         if "Compiling entry function" in ln:
-            entry = ln.split("'")[1] if pattern in ln else None
+            entry = ln.split("'")[1] if re.search(pattern, ln) else None
         elif entry and "spill" in ln:
             spill = ln.strip()
         elif entry and "registers" in ln:
@@ -492,8 +524,8 @@ def _ptxas_report(pattern):
 
 def _sass_counts(pattern, ops=("HGMMA", "UTMALDG")):
     """{kernel<HD>: {op: instructions}} in the built library's SASS
-    (``cuobjdump -sass``) for each function whose name holds
-    ``pattern``."""
+    (``cuobjdump -sass``) for each function whose name matches ``pattern``
+    (as in ``_ptxas_report``)."""
     from speech_transcript_embeddings_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(_build.library_path())],
@@ -577,9 +609,9 @@ def phase6():
             raise AssertionError(f"flash bwd {kernel} {what}: two launches "
                                  f"on the same inputs differ")
 
-    for ln in _ptxas_report("wgmma_kernel"):
+    for ln in _ptxas_report("bwd_d[a-z]+_wgmma_kernel"):
         log(6, f"ptxas {ln}", ptxas=ln)
-    sass = _sass_counts("wgmma_kernel")
+    sass = _sass_counts("bwd_d[a-z]+_wgmma_kernel")
     for kname, n in sass.items():
         log(6, f"SASS {kname}: " + ", ".join(f"{op} {c}" for op, c in
                                              n.items()), sass={kname: n})
@@ -1011,11 +1043,11 @@ def _phase5(tmp):
         thread.join(timeout=30)
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
-                "flash_rel_fwd_mma": fa.LAUNCHES["flash_rel_fwd_mma"],
+                "flash_rel_fwd_wgmma": fa.LAUNCHES["flash_rel_fwd_wgmma"],
                 "flash_rel_fwd": fa.LAUNCHES["flash_rel_fwd"]}
     by_frames = dict(fk.log_mel.launches_by_frames)
     layers = cfg.model.audio.num_layers
-    if launches["flash_rel_fwd_mma"] != layers * audio_forwards or \
+    if launches["flash_rel_fwd_wgmma"] != layers * audio_forwards or \
             launches["flash_rel_fwd"] != 0:
         raise AssertionError(f"flash launched {launches} for "
                              f"{audio_forwards} audio forwards of {layers} "
@@ -1119,10 +1151,10 @@ def _phase5_int8(path, texts, batch16, text_bf16, audio_bf16, bf16, layers):
         thread.join(timeout=30)
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
-                "flash_rel_fwd_mma": fa.LAUNCHES["flash_rel_fwd_mma"],
+                "flash_rel_fwd_wgmma": fa.LAUNCHES["flash_rel_fwd_wgmma"],
                 "flash_rel_fwd": fa.LAUNCHES["flash_rel_fwd"],
                 "int8_products": quant.int8_matmul.launches}
-    want = {"log_mel": 2, "log_mel_normalize": 2, "flash_rel_fwd_mma":
+    want = {"log_mel": 2, "log_mel_normalize": 2, "flash_rel_fwd_wgmma":
             2 * layers, "flash_rel_fwd": 0,
             "int8_products": 2 * (per_path["text"] + per_path["audio"])}
     if launches != want:
@@ -1431,7 +1463,7 @@ def _hold_step(cfg, got, want, model, got_name, want_name):
         share_beyond_1e5=far, unresolved=noise, moved=moved)}
 
 
-FLASH_KERNELS = ("flash_rel_fwd_mma", "flash_rel_bwd_wgmma", "flash_rel_fwd",
+FLASH_KERNELS = ("flash_rel_fwd_wgmma", "flash_rel_bwd_wgmma", "flash_rel_fwd",
                  "flash_rel_bwd")
 N_PARAMS = 863_886_658
 N_TRAINABLE = 354_846_082
@@ -1493,7 +1525,7 @@ def phase8():
         forwards = micro + n_eval + res["test_batches"] + \
             res["retrieval_batches"]
         want = {"flash_rel_bwd_wgmma": layers * micro,
-                "flash_rel_fwd_mma": layers * forwards,
+                "flash_rel_fwd_wgmma": layers * forwards,
                 "flash_rel_fwd": 0, "flash_rel_bwd": 0,
                 "log_mel": forwards, "log_mel_normalize": forwards}
         if launches != want:
@@ -1658,7 +1690,7 @@ def phase9():
             res["retrieval_batches"]
         layers = cfg.model.audio.num_layers
         want = {"flash_rel_bwd_wgmma": layers * micro,
-                "flash_rel_fwd_mma": layers * forwards,
+                "flash_rel_fwd_wgmma": layers * forwards,
                 "flash_rel_fwd": 0, "flash_rel_bwd": 0,
                 "log_mel": forwards, "log_mel_normalize": forwards}
         if launches != want:
@@ -2064,7 +2096,7 @@ def phase10():
         losses = [st["loss"] for st in res["step_log"]]
         layers = flagship_model_config().audio.num_layers
         want = {"log_mel": 2, "log_mel_normalize": 2,
-                "flash_rel_fwd_mma": 2 * layers,
+                "flash_rel_fwd_wgmma": 2 * layers,
                 "flash_rel_bwd_wgmma": 2 * layers,
                 "flash_rel_fwd": 0, "flash_rel_bwd": 0}
         if res.get("preempted", {}).get("batches_done") != 2 or \
@@ -2361,7 +2393,7 @@ def _dp_worker_b(out):
         res["retrieval_batches"]
     layers = cfg.model.audio.num_layers
     want = {"flash_rel_bwd_wgmma": layers * micro,
-            "flash_rel_fwd_mma": layers * forwards,
+            "flash_rel_fwd_wgmma": layers * forwards,
             "flash_rel_fwd": 0, "flash_rel_bwd": 0,
             "log_mel": forwards, "log_mel_normalize": forwards}
     if launches != want:
@@ -2577,7 +2609,8 @@ def _phase12a(tmp):
     launches = {}
     for dtype, want_kernels, tol in (
             ("float32", {"flash_rel_fwd", "flash_rel_bwd"}, 1e-6),
-            ("bfloat16", {"flash_rel_fwd_mma", "flash_rel_bwd_wgmma"}, 2e-2)):
+            ("bfloat16", {"flash_rel_fwd_wgmma", "flash_rel_bwd_wgmma"},
+             2e-2)):
         cfg = _tp_small_cfg(dtype)
         model = _small_model(cfg)
         got = _merge_run([r[dtype] for r in ranks], model)
@@ -2828,7 +2861,7 @@ def _tp_worker_b(out, ref):
         res["retrieval_batches"]
     layers = cfg.model.audio.num_layers
     want = {"flash_rel_bwd_wgmma": layers * micro,
-            "flash_rel_fwd_mma": layers * forwards,
+            "flash_rel_fwd_wgmma": layers * forwards,
             "flash_rel_fwd": 0, "flash_rel_bwd": 0,
             "log_mel": forwards, "log_mel_normalize": forwards}
     if launches != want:
@@ -3145,7 +3178,7 @@ def main():
     # counted on phases 4 and 7; every time at the bf16 main-path shape
     fwd_at, bwd_at = (64, 1536), (256, 768)
     for name, route_key, errs, times, at, line in (
-            ("flash_rel_fwd_mma", "ms", flash_err["mma"], fwd_times, fwd_at,
+            ("flash_rel_fwd_wgmma", "ms", flash_err["mma"], fwd_times, fwd_at,
              237),
             ("flash_rel_fwd", "simt_ms", flash_err["simt"], fwd_times, fwd_at,
              237),
@@ -3153,7 +3186,7 @@ def main():
              278),
             ("flash_rel_bwd", "simt_ms", bwd_abs_err["simt"], bwd_times,
              bwd_at, 278)):
-        src = {"flash_rel_fwd_mma": "flash_rel_fwd.cu",
+        src = {"flash_rel_fwd_wgmma": "flash_rel_fwd_sm90.cu",
                "flash_rel_fwd": "flash_rel_fwd.cu",
                "flash_rel_bwd_wgmma": "flash_rel_bwd_sm90.cu",
                "flash_rel_bwd": "flash_rel_bwd.cu"}[name]

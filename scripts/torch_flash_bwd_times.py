@@ -51,11 +51,13 @@ SOURCE = "flash_rel_bwd_sm90.cu"
 ENTRY = "ste_flash_rel_bwd_wgmma"
 
 
-def build_variants(specs, _build):
-    """One shared library per SPEC; nvcc processes run at once."""
+def build_variants(specs, _build, source_name=SOURCE):
+    """One shared library per SPEC, from ``csrc/<source_name>``; nvcc
+    processes run at once."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    source = (_build.CSRC / SOURCE).read_text()
+    stem = source_name.split(".")[0]
+    source = (_build.CSRC / source_name).read_text()
     paths, procs = [], []
     for i, spec in enumerate(specs):
         includes = ["-I", str(_build.CSRC)]
@@ -72,10 +74,11 @@ def build_variants(specs, _build):
                 text, hits = re.subn(rf"(constexpr int {name} = )[^;]+;",
                                      rf"\g<1>{value};", text)
                 if hits != 1:
-                    raise ValueError(f"{name}: {hits} definitions in {SOURCE}")
-        src = out_dir / f"flash_bwd_{i}.cu"
+                    raise ValueError(f"{name}: {hits} definitions in "
+                                     f"{source_name}")
+        src = out_dir / f"{stem}_{i}.cu"
         src.write_text(text)
-        paths.append(out_dir / f"flash_bwd_{i}.so")
+        paths.append(out_dir / f"{stem}_{i}.so")
         procs.append(subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *includes, "-shared",
              "-o", str(paths[-1]), str(src)],

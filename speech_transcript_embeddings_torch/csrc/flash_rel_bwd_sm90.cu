@@ -69,6 +69,10 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using ste_sm90::align1k;
+using ste_sm90::encode_3d;
+using ste_sm90::max_of;
+using ste_sm90::Tile;
 
 constexpr int kThreads = 128;   // one warpgroup
 constexpr int kM = 64;          // rows a block owns: queries (A), keys (B)
@@ -80,38 +84,6 @@ constexpr int kStagesA = 1;
 constexpr int kStagesB = 2;
 constexpr float kNeg = -1e30f;
 
-// a swizzled bf16 tile of ROWS rows and HD columns (64-column chunks)
-template <int HD, int ROWS>
-struct Tile {
-  static constexpr int kChunks = (HD + 63) / 64;
-  static constexpr int kBytes = kChunks * ROWS * 128;
-};
-
-__host__ __device__ constexpr int align1k(int bytes) {
-  return (bytes + 1023) / 1024 * 1024;
-}
-
-__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
-
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  const uint32_t a = ste_sm90::smem_u32(raw);
-  return raw + ((1024 - (a & 1023)) & 1023);
-}
-
-__device__ __forceinline__ float bf_at(const bf16* p) {
-  return __bfloat162float(*p);
-}
-
-// A fragment (16 rows × 16 k) of a swizzled 64-row tile, rows r0..,
-// columns k0..
-__device__ __forceinline__ void load_a_sw(uint32_t* a,
-                                          const unsigned char* tile, int r0,
-                                          int k0, int lane) {
-  const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int c = k0 + (lane >> 4) * 8;
-  ste_mma::ldsm_x4(a, tile + ste_sm90::sw_off<kM>(r, c));
-}
-
 // B fragments of two n-tiles (16 k × 16 n) of a swizzled 64-row [k][n] tile
 __device__ __forceinline__ void load_b_kn_sw(uint32_t* b,
                                              const unsigned char* tile,
@@ -119,19 +91,6 @@ __device__ __forceinline__ void load_b_kn_sw(uint32_t* b,
   const int r = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
   const int c = n0 + (lane >> 4) * 8;
   ste_mma::ldsm_x4_t(b, tile + ste_sm90::sw_off<kM>(r, c));
-}
-
-// E [num_pos][HD] bf16 into shared memory with row stride HD + 8, rows past
-// num_pos zero (the B operand of the once-a-block mma.sync products)
-template <int HD>
-__device__ __forceinline__ void load_e(bf16* e_s, const bf16* e, int num_pos,
-                                       int np_pad, int tid) {
-  for (int idx = tid; idx < np_pad * HD / 8; idx += kThreads) {
-    const int p = idx / (HD / 8), d = (idx - p * (HD / 8)) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (p < num_pos) raw = *reinterpret_cast<const uint4*>(e + p * HD + d);
-    *reinterpret_cast<uint4*>(e_s + p * (HD + 8) + d) = raw;
-  }
 }
 
 // ---- kernel A: dq, dqE, q_s, qE, dd and the dE partials --------------------
@@ -230,7 +189,7 @@ flash_rel_bwd_dq_wgmma_kernel(
   }
   // E for the qE product, in the space dqE takes later
   bf16* e_s = reinterpret_cast<bf16*>(dqe_s);
-  load_e<HD>(e_s, e, num_pos, np_pad, tid);
+  load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
 
   mbar_wait(qd_bar, 0);
   // q_s = round(q·scale) in place (elementwise, so the swizzle does not
@@ -446,7 +405,7 @@ flash_rel_bwd_dq_wgmma_kernel(
   // E again, in the space dO and the K/V ring took (every tile was waited
   // for)
   e_s = reinterpret_cast<bf16*>(do_s);
-  load_e<HD>(e_s, e, num_pos, np_pad, tid);
+  load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
   __syncthreads();
 
   // dq += round(dqE)·E, then round, scale by 1/√hd, round
@@ -758,47 +717,6 @@ flash_rel_bwd_dkv_wgmma_kernel(
 }
 
 // ---- host side ---------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
-// needs no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 3-D map over a contiguous bf16 [bh][t][cols] tensor, box
-// [1][rows][box0]; 128-byte swizzle for 64-column boxes, none for qE rows
-bool encode_3d(CUtensorMap* map, const void* ptr, int bh, int t, int cols,
-               int box0, int rows, bool swizzle) {
-  EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(t) * cols * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* e,

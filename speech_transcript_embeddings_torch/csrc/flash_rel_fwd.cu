@@ -28,14 +28,13 @@
 // TPU kernel's whole-row VMEM chunking and MAX_T_PAD limit do not apply.
 // This CUDA-core kernel serves fp32 inputs and head dims that are not a
 // multiple of 16; bf16 inputs with hd a multiple of 16 (the conformer's hd
-// 64) go to flash_rel_fwd_mma_kernel below, which uses the tensor cores.
+// 64) go to flash_rel_fwd_wgmma_kernel (flash_rel_fwd_sm90.cu), which uses
+// the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -210,302 +209,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, const void* e,
                         num_pos, left, nh, scale, s);
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
-//
-// The same function for bf16 q, k, v and E with hd a multiple of 16 (≤ 128),
-// with the TPU kernel's numerics: bf16 operands, fp32 accumulate
-// (mma.sync.m16n8k16), qE and p rounded to bf16 before their products.
-// What bounds it: ≈4·T²·hd FLOP per row against T·hd·8 bytes, so compute on
-// the tensor cores. Design: one block of 4 warps per (row, 64-query tile),
-// each warp owns 16 query rows. The warp keeps its q_s fragments in
-// registers; K and V tiles of 64 keys stream through a two-stage cp.async
-// ring in shared memory, so the next tile's copy overlaps this tile's
-// products. qE = q_s·Eᵀ (E padded to np_pad rows of zeros) is one more
-// tensor-core product per block, kept in shared memory as fp32. The bias is
-// added by band: a (16-query, 64-key) tile whose every j − i ≤ −L takes the
-// row constant qE[i, 0], one whose every j − i ≥ R takes qE[i, L + R], and
-// only the ≤ 3 tiles that straddle the band index qE per element. The online
-// softmax runs on the accumulator fragments (a row lives in one quad of
-// lanes), and p, rounded to bf16 in registers, is the A operand of p·v.
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kTile = 64;    // queries per block, keys per K/V tile
-
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_rel_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ e,
-                         const int* __restrict__ lengths,
-                         __nv_bfloat16* __restrict__ out,
-                         float* __restrict__ lse, int t, int t_pad,
-                         int num_pos, int np_pad, int left, int nh,
-                         float scale) {
-  using namespace ste_mma;
-  constexpr int LD = HD + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
-  __nv_bfloat16* kv_s = q_s + kTile * LD;              // [2][k, v][64][LD]
-  __nv_bfloat16* e_s = kv_s + 2 * kTile * LD;  // [np_pad][LD] in stage 1,
-                                               // until the key loop starts
-  float* qe_s = reinterpret_cast<float*>(kv_s + 4 * kTile * LD);
-                                                           // [64][np_pad]
-  const int row = blockIdx.y;
-  const int i0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c4 = lane & 3;
-  const int limit = lengths[row / nh];
-  const int right = num_pos - 1 - left;
-  const int lr = left + right;
-  const __nv_bfloat16* qb = q + static_cast<int64_t>(row) * t * HD;
-  const __nv_bfloat16* kb = k + static_cast<int64_t>(row) * t * HD;
-  const __nv_bfloat16* vb = v + static_cast<int64_t>(row) * t * HD;
-  // keys at or past the clip's length have p = exp(NEG − m) = 0 unless
-  // every key is masked, so only a clip with no valid key walks them all
-  const int n_tiles = ((limit > 0 ? limit : t) + kTile - 1) / kTile;
-
-  auto load_kv = [&](int jt, int stage) {
-    __nv_bfloat16* dst = kv_s + stage * 2 * kTile * LD;
-    const int j0 = jt * kTile;
-    tile_to_smem<kTile, HD, kThreads>(dst, kb + j0 * HD, t - j0, tid);
-    tile_to_smem<kTile, HD, kThreads>(dst + kTile * LD, vb + j0 * HD, t - j0,
-                                      tid);
-  };
-  // q and E (zero rows past num_pos) in one copy group, the first K/V tile
-  // in the next, so the qE product overlaps the K/V copy
-  tile_to_smem<kTile, HD, kThreads>(q_s, qb + i0 * HD, t - i0, tid);
-  for (int idx = tid; idx < np_pad * HD / 8; idx += kThreads) {
-    const int p = idx / (HD / 8), d = (idx - p * (HD / 8)) * 8;
-    cp_async16(e_s + p * LD + d, e + (p < num_pos ? p : 0) * HD + d,
-               p < num_pos);
-  }
-  cp_async_commit();
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  // q_s = round(q·scale), in the A fragments of the warp's 16 rows
-  const int wr = warp * 16;            // the warp's first row in the tile
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    load_a(qf[kk], q_s + wr * LD + kk * 16, LD, lane);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float2 f = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&qf[kk][u]));
-      qf[kk][u] = pack_bf16(f.x * scale, f.y * scale);
-    }
-  }
-
-  // qE rows of this warp, rounded to bf16, 16 positions at a time
-  for (int n0 = 0; n0 < np_pad; n0 += 16) {
-    float acc[2][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t b[4];
-      load_b_nk(b, e_s + n0 * LD + kk * 16, LD, lane);
-      mma(acc[0], qf[kk], b);
-      mma(acc[1], qf[kk], b + 2);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        qe_s[(wr + g + 8 * (x >> 1)) * np_pad + n0 + nt * 8 + 2 * c4 +
-             (x & 1)] = round_bf16(acc[nt][x]);
-  }
-  __syncthreads();                     // E (stage 1) is free for K and V
-
-  const int li[2] = {wr + g, wr + g + 8};            // rows in the tile
-  const int qi[2] = {i0 + li[0], i0 + li[1]};        // query indices
-  const float b_lo[2] = {qe_s[li[0] * np_pad], qe_s[li[1] * np_pad]};
-  const float b_hi[2] = {qe_s[li[0] * np_pad + lr], qe_s[li[1] * np_pad + lr]};
-  float o[HD / 8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    if (jt + 1 < n_tiles) load_kv(jt + 1, (jt + 1) & 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const __nv_bfloat16* k_t = kv_s + (jt & 1) * 2 * kTile * LD;
-    const __nv_bfloat16* v_t = k_t + kTile * LD;
-    const int j0 = jt * kTile;
-
-    float s[kTile / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-#pragma unroll
-      for (int np = 0; np < kTile / 16; ++np) {
-        uint32_t b[4];
-        load_b_nk(b, k_t + np * 16 * LD + kk * 16, LD, lane);
-        mma(s[2 * np], qf[kk], b);
-        mma(s[2 * np + 1], qf[kk], b + 2);
-      }
-
-    // the bias by band and the key mask (warp-uniform branches): a tile of
-    // valid keys outside the band adds one constant per row
-    const int iw = i0 + wr;
-    const bool all_lo = j0 + kTile - 1 - iw <= -left;
-    const bool all_hi = j0 - (iw + 15) >= right;
-    const bool full = j0 + kTile <= limit;
-    float mx[2] = {-INFINITY, -INFINITY};
-    if (full && (all_lo || all_hi)) {
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int r = x >> 1;
-          s[nt][x] += all_lo ? b_lo[r] : b_hi[r];
-          mx[r] = fmaxf(mx[r], s[nt][x]);
-        }
-    } else if (full) {
-      // valid keys in the band: the bias by element
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int r = x >> 1;
-          const int j = j0 + nt * 8 + 2 * c4 + (x & 1);
-          const int c = min(max(j - qi[r], -left), right) + left;
-          s[nt][x] += qe_s[li[r] * np_pad + c];
-          mx[r] = fmaxf(mx[r], s[nt][x]);
-        }
-    } else {
-      // the last tile: masked keys and keys past t
-#pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int r = x >> 1;
-          const int j = j0 + nt * 8 + 2 * c4 + (x & 1);
-          float sv;
-          if (j >= t) {
-            sv = -INFINITY;                        // past the last key
-          } else if (j >= limit) {
-            sv = kNeg;                             // masked key
-          } else {
-            const int c = min(max(j - qi[r], -left), right) + left;
-            sv = s[nt][x] + qe_s[li[r] * np_pad + c];
-          }
-          s[nt][x] = sv;
-          mx[r] = fmaxf(mx[r], sv);
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      const float corr = __expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr;
-#pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
-        o[dt][2 * r] *= corr;
-        o[dt][2 * r + 1] *= corr;
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float p = __expf(s[nt][x] - m[x >> 1]);
-        l[x >> 1] += p;
-        s[nt][x] = p;
-      }
-    // o += round(p)·v
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        uint32_t b[4];
-        load_b_kn(b, v_t + kk * 16 * LD + dp * 16, LD, lane);
-        mma(o[2 * dp], a, b);
-        mma(o[2 * dp + 1], a, b + 2);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    // the padded keys t..t_pad-1 (score NEG, value 0): they count only in
-    // a row whose every key is masked (m == NEG)
-    l[r] += static_cast<float>(t_pad - t) * __expf(kNeg - m[r]);
-    if (qi[r] >= t) continue;
-    const float inv = 1.0f / l[r];
-    __nv_bfloat16* orow = out + (static_cast<int64_t>(row) * t + qi[r]) * HD;
-#pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt)
-      *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * c4) =
-          __floats2bfloat162_rn(o[dt][2 * r] * inv, o[dt][2 * r + 1] * inv);
-    if (c4 == 0)
-      lse[static_cast<int64_t>(row) * t + qi[r]] = m[r] + logf(l[r]);
-  }
-}
-
-template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, const void* e,
-               const int* lengths, void* out, float* lse, int bh, int t,
-               int t_pad, int num_pos, int np_pad, int left, int nh,
-               float scale, cudaStream_t stream) {
-  auto kern = flash_rel_fwd_mma_kernel<HD>;
-  const size_t smem = 5 * kTile * (HD + 8) * 2 +
-                      static_cast<size_t>(kTile) * np_pad * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((t + kTile - 1) / kTile, bh);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(e),
-      lengths, static_cast<__nv_bfloat16*>(out), lse, t, t_pad, num_pos,
-      np_pad, left, nh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-// bf16 only, hd a multiple of 16 up to 128, np_pad = num_pos rounded up to
-// 16. Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for shapes the kernel does not take.
-extern "C" int ste_flash_rel_fwd_mma(const void* q, const void* k,
-                                     const void* v, const void* e,
-                                     const int* lengths, void* out,
-                                     float* lse, int bh, int t, int t_pad,
-                                     int hd, int num_pos, int left, int nh,
-                                     float scale, int device, void* stream) {
-  const int np_pad = (num_pos + 15) / 16 * 16;
-  if (hd % 16 != 0 || hd < 16 || hd > 128 || num_pos < 1 || num_pos > 128 ||
-      t < 1 || t_pad < t || nh < 1 || left < 0 || left >= num_pos || bh < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaSetDevice(device);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define STE_LAUNCH(HD)                                                       \
-  return launch_mma<HD>(q, k, v, e, lengths, out, lse, bh, t, t_pad,        \
-                        num_pos, np_pad, left, nh, scale, s)
-  switch (hd) {
-    case 16: STE_LAUNCH(16);
-    case 32: STE_LAUNCH(32);
-    case 48: STE_LAUNCH(48);
-    case 64: STE_LAUNCH(64);
-    case 80: STE_LAUNCH(80);
-    case 96: STE_LAUNCH(96);
-    case 112: STE_LAUNCH(112);
-    default: STE_LAUNCH(128);
-  }
-#undef STE_LAUNCH
-}
 
 // dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for shapes the kernel does not take.

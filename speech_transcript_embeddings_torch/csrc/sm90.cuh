@@ -1,5 +1,7 @@
-// Hopper (sm_90a) building blocks for flash_rel_bwd_sm90.cu: mbarriers, TMA
-// tile loads, wgmma descriptors and the wgmma products, in raw PTX.
+// Hopper (sm_90a) building blocks for flash_rel_fwd_sm90.cu and
+// flash_rel_bwd_sm90.cu: mbarriers, TMA tile loads, wgmma descriptors and the
+// wgmma products in raw PTX, the swizzled tiles' helpers, and on the host the
+// tensor maps that TMA reads.
 //
 // A tile of ROWS rows in shared memory is [ROWS][64 bf16] chunks in the
 // 128-byte swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma
@@ -24,7 +26,10 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace ste_sm90 {
 
@@ -37,6 +42,55 @@ template <int ROWS>
 __device__ __forceinline__ int sw_off(int r, int c) {
   return (c >> 6) * ROWS * 128 + r * 128 +
          ((((c & 63) >> 3) ^ (r & 7)) << 4) + ((c & 7) << 1);
+}
+
+// a swizzled bf16 tile of ROWS rows and HD columns (64-column chunks)
+template <int HD, int ROWS>
+struct Tile {
+  static constexpr int kChunks = (HD + 63) / 64;
+  static constexpr int kBytes = kChunks * ROWS * 128;
+};
+
+__host__ __device__ constexpr int align1k(int bytes) {
+  return (bytes + 1023) / 1024 * 1024;
+}
+
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
+
+// the first 1024-byte aligned byte of the dynamic shared memory (the
+// kernels' layouts reserve 1024 bytes for the shift)
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ float bf_at(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// A fragment (16 rows × 16 k) of a swizzled 64-row tile, rows r0..,
+// columns k0..
+__device__ __forceinline__ void load_a_sw(uint32_t* a,
+                                          const unsigned char* tile, int r0,
+                                          int k0, int lane) {
+  const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int c = k0 + (lane >> 4) * 8;
+  ste_mma::ldsm_x4(a, tile + sw_off<64>(r, c));
+}
+
+// E [num_pos][HD] bf16 into shared memory with row stride HD + 8, rows past
+// num_pos zero (the B operand of the once-a-block mma.sync products), by
+// THREADS threads
+template <int HD, int THREADS>
+__device__ __forceinline__ void load_e(__nv_bfloat16* e_s,
+                                       const __nv_bfloat16* e, int num_pos,
+                                       int np_pad, int tid) {
+  for (int idx = tid; idx < np_pad * HD / 8; idx += THREADS) {
+    const int p = idx / (HD / 8), d = (idx - p * (HD / 8)) * 8;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (p < num_pos) raw = *reinterpret_cast<const uint4*>(e + p * HD + d);
+    *reinterpret_cast<uint4*>(e_s + p * (HD + 8) + d) = raw;
+  }
 }
 
 // ---- mbarriers ----------------------------------------------------------
@@ -149,6 +203,12 @@ __device__ __forceinline__ uint64_t desc_mn(const void* tile, int row0) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d);
+// d (64×N) = a·bᵀ (+ d if scale_d): A from registers, B K-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d);
+
 // d (64×N) = a·b (+ d if scale_d): A from registers, B MN-major
 template <int N>
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[N / 2],
@@ -170,6 +230,22 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 template <>
@@ -336,6 +412,50 @@ __device__ __forceinline__ void wgmma_rs_t<128>(float (&d)[64],
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// ---- host: tensor maps --------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so the library
+// needs no -lcuda; looked up once (nullptr where the driver lacks it)
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault) == cudaSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 3-D map over a contiguous bf16 [bh][t][cols] tensor, box
+// [1][rows][box0]; 128-byte swizzle for 64-column boxes, none for qE rows.
+// Rows and columns past the tensor arrive as zeros.
+inline bool encode_3d(CUtensorMap* map, const void* ptr, int bh, int t,
+                      int cols, int box0, int rows, bool swizzle) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(t) * cols * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace ste_sm90

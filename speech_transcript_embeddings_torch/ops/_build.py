@@ -35,7 +35,8 @@ _SIGNATURES = {
     "ste_flash_rel_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _F, _I, _I, _P],
     "ste_flash_rel_bwd": [_P] * 13 + [_I] * 7 + [_F, _F, _I, _I, _P],
-    "ste_flash_rel_fwd_mma": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "ste_flash_rel_fwd_wgmma": ([_P] * 5 + [_I] + [_P] * 2 + [_I] * 7
+                                + [_F, _I, _P]),
     "ste_flash_rel_bwd_wgmma": [_P] * 15 + [_I] * 7 + [_F, _F, _I, _P],
 }
 
@@ -114,7 +115,9 @@ def check(code: int, name: str) -> None:
 
 
 def launch_args(t):
-    """(device index, current stream handle) for a CUDA tensor."""
+    """(device index, current stream handle) for a CUDA tensor, as the
+    ints that the entry points' argtypes convert (the raw handle, without
+    the ``torch.cuda.Stream`` object that ``current_stream`` builds)."""
     import torch
-    return (t.device.index or 0,
-            ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
+    device = t.get_device()
+    return device, torch._C._cuda_getCurrentRawStream(device)

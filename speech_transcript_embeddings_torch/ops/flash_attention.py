@@ -14,12 +14,13 @@ for the backward. Same signature and layout as the JAX function: q, k, v
 contiguous-prefix mask reduced to one valid length per batch row.
 
 Each direction has two CUDA routes: a tensor-core one for bf16 with a head
-dim that is a multiple of 16 (the conformer's case) and a CUDA-core one for
-fp32 and other head dims (``csrc/flash_rel_fwd.cu``; the backward pair in
-``csrc/flash_rel_bwd.cu``, its tensor-core pair on Hopper's wgmma and TMA
-in ``csrc/flash_rel_bwd_sm90.cu``); ``flash_kernel`` is the rule that picks
-one, and ``LAUNCHES`` counts each kernel's launches. CPU tensors take the
-plain twins.
+dim that is a multiple of 16 (the conformer's case), on Hopper's wgmma fed
+by TMA (``csrc/flash_rel_fwd_sm90.cu``, ``csrc/flash_rel_bwd_sm90.cu``),
+and a CUDA-core one for fp32 and other head dims (``csrc/flash_rel_fwd.cu``,
+``csrc/flash_rel_bwd.cu``); ``flash_kernel`` is the rule that picks one, and
+``LAUNCHES`` counts each kernel's launches. CPU tensors take the plain
+twins. The public wrappers check their inputs once; the launch functions
+behind them trust them.
 
 ``flash_attention`` is differentiable: its backward is the K4 kernel pair
 for CUDA tensors and ``rel_attention_bwd_reference`` (the same math in
@@ -32,6 +33,7 @@ the replay does not launch the forward kernel again (the JAX
 from __future__ import annotations
 
 import collections
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -44,6 +46,8 @@ NEG = -1e30
 MAX_NUM_POS = 128
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the mask dtypes the wgmma forward reads itself (others arrive as `> 0`)
+_MASK_KINDS = {torch.bool: 0, torch.int32: 1, torch.float32: 2}
 # launches of each CUDA kernel (pair), counted where it is launched
 LAUNCHES = collections.Counter()
 
@@ -52,13 +56,22 @@ def _t_pad(t: int) -> int:
     return -(-t // BLOCK) * BLOCK
 
 
-def _scale(q: torch.Tensor) -> torch.Tensor:
-    """1/√hd rounded to q's dtype, as the JAX wrapper scales q."""
-    return torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype)
+@functools.lru_cache(maxsize=None)
+def _scale(dtype: torch.dtype, head_dim: int) -> float:
+    """1/√hd rounded to ``dtype``, as the JAX wrapper scales q: a Python
+    float (exact in ``dtype``), so that a launch builds no tensor for it and
+    ``q * _scale(...)`` rounds once, as the product with a 0-dim tensor of
+    ``dtype`` does."""
+    return float(torch.tensor(1.0 / math.sqrt(head_dim), dtype=dtype))
 
 
 def _lengths(kv_mask: torch.Tensor) -> torch.Tensor:
-    return torch.sum(kv_mask > 0, dim=-1).to(torch.int32)
+    """int32 count of the positive entries of each row of ``kv_mask``, for
+    the twins and the kernels that take lengths (one ATen op fewer than
+    ``sum(mask > 0).to(int32)``; no comparison for a bool mask). The wgmma
+    forward counts them itself."""
+    valid = kv_mask if kv_mask.dtype == torch.bool else kv_mask > 0
+    return valid.sum(-1, dtype=torch.int32)
 
 
 def _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max):
@@ -84,10 +97,10 @@ def _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max):
 
 
 def _require_cuda(name, *tensors):
-    for x in tensors:
-        if x.device != tensors[0].device or x.device.type != "cuda":
-            raise ValueError(f"{name}: expected CUDA tensors on one device, "
-                             f"got {x.device}")
+    device = tensors[0].get_device()           # -1 off the card
+    if device < 0 or any(x.get_device() != device for x in tensors):
+        raise ValueError(f"{name}: expected CUDA tensors on one device, got "
+                         f"{', '.join(str(x.device) for x in tensors)}")
 
 
 def _key_mask(kv_mask, num_heads, t_pad, device) -> torch.Tensor:
@@ -119,7 +132,7 @@ def rel_attention_reference(q, k, v, dist_embedding, kv_mask, *,
     t_pad = _t_pad(t)
     num_pos = dist_embedding.shape[0]
     pad = (0, 0, 0, t_pad - t)
-    q_s = q * _scale(q).to(q.device)
+    q_s = q * _scale(q.dtype, hd)
     qp, kp, vp = (torch.nn.functional.pad(x, pad).float()
                   for x in (q_s, k, v))
     e = dist_embedding.to(q.dtype).float()
@@ -157,7 +170,7 @@ def rel_attention_bwd_reference(q, k, v, dist_embedding, kv_mask, out, lse,
     t_pad = _t_pad(t)
     num_pos = dist_embedding.shape[0]
     pad = (0, 0, 0, t_pad - t)
-    q_s = (q * _scale(q).to(q.device)).float()                # [bh, t, hd]
+    q_s = (q * _scale(dt, hd)).float()                        # [bh, t, hd]
     kp, vp = (torch.nn.functional.pad(x, pad).float() for x in (k, v))
     e = dist_embedding.to(dt).float()
     do = dout.to(dt).float()
@@ -202,42 +215,42 @@ def _np_pad(num_pos: int) -> int:
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
     """``x`` contiguous with a 16-byte aligned start (the kernels read 16
-    bytes at a time)."""
-    x = x.detach().contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
+    bytes at a time; TMA needs it)."""
+    if not x.is_contiguous():
+        x = x.detach().contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.detach().clone()
 
 
 def _fwd_launch(kernel, q, k, v, dist_embedding, kv_mask, num_heads,
                 left_max):
-    """Launch forward kernel ``kernel`` ("mma" or "simt") → (out, lse)."""
-    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
-    _require_cuda("flash_attention", q, k, v, dist_embedding, kv_mask)
+    """Launch forward kernel ``kernel`` ("mma": the wgmma kernel, or
+    "simt") → (out, lse), for CUDA inputs that ``_check`` passed and that
+    the route takes (``flash_kernel``)."""
     bh, t, hd = q.shape
-    q, k, v = (_aligned(x) for x in (q, k, v))
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     e = _aligned(dist_embedding.to(q.dtype))
-    lengths = _lengths(kv_mask).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((bh, t, 1), dtype=torch.float32, device=q.device)
     device, stream = _build.launch_args(q)
-    lib = _build.library()
+    shape = (bh, t, _t_pad(t), hd, e.shape[0], left_max, num_heads,
+             _scale(q.dtype, hd))
     if kernel == "mma":
-        if flash_kernel(q.dtype, hd) != "mma":
-            raise ValueError(f"flash_rel_fwd_mma takes bf16 with hd a "
-                             f"multiple of 16 ≤ {MAX_HEAD_DIM}: {q.dtype}, "
-                             f"hd {hd}")
-        code = lib.ste_flash_rel_fwd_mma(
+        # each block counts its clip's valid keys in the mask itself
+        mask = kv_mask if kv_mask.dtype in _MASK_KINDS else kv_mask > 0
+        if not mask.is_contiguous():
+            mask = mask.contiguous()
+        code = _build.library().ste_flash_rel_fwd_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t,
-            _t_pad(t), hd, e.shape[0], left_max, num_heads,
-            float(_scale(q)), device, stream)
-        _build.check(code, "ste_flash_rel_fwd_mma")
-        LAUNCHES["flash_rel_fwd_mma"] += 1
+            mask.data_ptr(), _MASK_KINDS[mask.dtype], out.data_ptr(),
+            lse.data_ptr(), *shape, device, stream)
+        _build.check(code, "ste_flash_rel_fwd_wgmma")
+        LAUNCHES["flash_rel_fwd_wgmma"] += 1
     else:
-        code = lib.ste_flash_rel_fwd(
+        lengths = _lengths(kv_mask)
+        code = _build.library().ste_flash_rel_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), bh, t,
-            _t_pad(t), hd, e.shape[0], left_max, num_heads,
-            float(_scale(q)), _DTYPES[q.dtype], device, stream)
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(), *shape,
+            _DTYPES[q.dtype], device, stream)
         _build.check(code, "ste_flash_rel_fwd")
         LAUNCHES["flash_rel_fwd"] += 1
     return out, lse
@@ -254,6 +267,8 @@ def flash_attention_fwd(q, k, v, dist_embedding, kv_mask, *,
             return rel_attention_reference(
                 q, k, v, dist_embedding, kv_mask, num_heads=num_heads,
                 left_max=left_max)
+    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
+    _require_cuda("flash_attention", q, k, v, dist_embedding, kv_mask)
     return _fwd_launch(flash_kernel(q.dtype, q.shape[-1]), q, k, v,
                        dist_embedding, kv_mask, num_heads, left_max)
 
@@ -261,19 +276,14 @@ def flash_attention_fwd(q, k, v, dist_embedding, kv_mask, *,
 def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
                 num_heads, left_max):
     """Launch backward kernel pair ``kernel`` ("mma": the wgmma pair, or
-    "simt") → (dq, dk, dv, dE)."""
-    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
-    _require_cuda("flash_attention_bwd", q, k, v, dist_embedding, kv_mask,
-                  out, lse, dout)
-    if dist_embedding.dtype != q.dtype:
-        raise ValueError(f"dist_embedding dtype {dist_embedding.dtype} != "
-                         f"{q.dtype}: cast E before the op")
+    "simt") → (dq, dk, dv, dE), for CUDA inputs that ``_check`` passed and
+    that the route takes, E in q's dtype."""
     bh, t, hd = q.shape
     num_pos = dist_embedding.shape[0]
     q, k, v, e = (_aligned(x) for x in (q, k, v, dist_embedding))
     do = _aligned(dout.to(q.dtype))
     lse = lse.detach().float().contiguous()
-    lengths = _lengths(kv_mask).contiguous()
+    lengths = _lengths(kv_mask)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     q_tiles = -(-t // 64)                   # the kernels' query tile
     de_part = torch.empty((bh * q_tiles, num_pos, hd), dtype=torch.float32,
@@ -281,10 +291,6 @@ def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
     device, stream = _build.launch_args(q)
     lib = _build.library()
     if kernel == "mma":
-        if flash_kernel(q.dtype, hd) != "mma":
-            raise ValueError(f"flash_rel_bwd_wgmma takes bf16 with hd a "
-                             f"multiple of 16 ≤ {MAX_HEAD_DIM}: {q.dtype}, "
-                             f"hd {hd}")
         # scratch that kernel A writes and kernel B reads: q_s, qE (bf16,
         # exact) and dd = rowsum(dO∘O)
         o = _aligned(out.to(q.dtype))
@@ -297,7 +303,7 @@ def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
             lengths.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q_s.data_ptr(),
             qe.data_ptr(), dd.data_ptr(), de_part.data_ptr(), bh, t,
-            _t_pad(t), hd, num_pos, left_max, num_heads, float(_scale(q)),
+            _t_pad(t), hd, num_pos, left_max, num_heads, _scale(q.dtype, hd),
             1.0 / math.sqrt(hd), device, stream)
         _build.check(code, "ste_flash_rel_bwd_wgmma")
         LAUNCHES["flash_rel_bwd_wgmma"] += 1
@@ -313,7 +319,7 @@ def _bwd_launch(kernel, q, k, v, dist_embedding, kv_mask, out, lse, dout,
             lengths.data_ptr(), do.data_ptr(), lse.data_ptr(), dd.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), qe.data_ptr(),
             de_part.data_ptr(), bh, t, _t_pad(t), hd, num_pos, left_max,
-            num_heads, float(_scale(q)), 1.0 / math.sqrt(hd),
+            num_heads, _scale(q.dtype, hd), 1.0 / math.sqrt(hd),
             _DTYPES[q.dtype], device, stream)
         _build.check(code, "ste_flash_rel_bwd")
         LAUNCHES["flash_rel_bwd"] += 1
@@ -332,6 +338,12 @@ def flash_attention_bwd(q, k, v, dist_embedding, kv_mask, out, lse, dout, *,
         return rel_attention_bwd_reference(
             q, k, v, dist_embedding, kv_mask, out, lse, dout,
             num_heads=num_heads, left_max=left_max)
+    _check(q, k, v, dist_embedding, kv_mask, num_heads, left_max)
+    _require_cuda("flash_attention_bwd", q, k, v, dist_embedding, kv_mask,
+                  out, lse, dout)
+    if dist_embedding.dtype != q.dtype:
+        raise ValueError(f"dist_embedding dtype {dist_embedding.dtype} != "
+                         f"{q.dtype}: cast E before the op")
     return _bwd_launch(flash_kernel(q.dtype, q.shape[-1]), q, k, v,
                        dist_embedding, kv_mask, out, lse, dout, num_heads,
                        left_max)

@@ -223,7 +223,7 @@ def test_additive_mask_forward_is_bitwise_the_where_mask(t, lengths):
     t_pad = fa._t_pad(t)
     pad = (0, 0, 0, t_pad - t)
     qp, kp, vp = (torch.nn.functional.pad(x, pad)
-                  for x in (qt * fa._scale(qt), kt, vt))
+                  for x in (qt * fa._scale(qt.dtype, HD), kt, vt))
     qe = qp @ et.T
     bias = torch.gather(qe, 2, fa._dist_index(t_pad, t_pad, L, R, "cpu")[
         None].expand(qp.shape[0], t_pad, t_pad))
@@ -294,19 +294,19 @@ def test_module_flash_matches_plain_path():
 
 # ---- the tensor-core kernels' tile schedule, rehearsed on the CPU ----------
 #
-# A test-only emulation of the bf16 kernels of csrc/flash_rel_fwd.cu (the
-# mma.sync forward) and csrc/flash_rel_bwd_sm90.cu (the wgmma backward
+# A test-only emulation of the bf16 kernels of csrc/flash_rel_fwd_sm90.cu
+# (the wgmma forward) and csrc/flash_rel_bwd_sm90.cu (the wgmma backward
 # pair): the same tiles (blocks of 64 query or key rows, each warp's 16 rows
-# against steps of 64 key columns forward, 32 columns backward), the same band
-# classification (a warp's step whose every j − i ≤ −L or ≥ R takes a
-# row-constant bias, whose gradient is the row sum of ds), the same skip of
-# the keys past a clip's length, the same online softmax per key tile, the
-# same bf16 rounding points and scratch (q_s, qE in bf16, dd summed in
-# kernel A's order), in fp32 torch ops.
+# against steps of 32 columns), the same band classification (a warp's step
+# whose every j − i ≤ −L or ≥ R takes a row-constant bias, whose gradient is
+# the row sum of ds), the same skip of the keys past a clip's length, the
+# same online softmax per 32-key tile, the same bf16 rounding points and
+# scratch (q_s, qE in bf16, dd summed in kernel A's order), in fp32 torch
+# ops.
 
 EL, ER = 64, 8                     # the conformer's band
 TILE, WARP_ROWS = 64, 16          # rows a block owns, rows a warp owns
-BWD_COLS = 32                      # columns of a backward step (kN)
+COLS = 32                          # columns of a step (the kernels' kN)
 NEG = -1e30
 
 
@@ -316,7 +316,10 @@ def _bf(x):
 
 def _emulate_fwd(q, k, v, e, lengths, nh):
     """(out, lse) of one call of the forward kernel, q/k/v ``[B·h, t, hd]``
-    bf16 (as fp32 values), e ``[P, hd]``, ``lengths`` per clip."""
+    bf16 (as fp32 values), e ``[P, hd]``, ``lengths`` per clip: each warp's
+    16 queries over the key tiles of 32, the online softmax rescaled once a
+    tile, a tile of one bias a row adding it to the row max and taking it
+    off the max in p's exponent."""
     bh, t, hd = q.shape
     t_pad, lr = fa._t_pad(t), EL + ER
     qs = _bf(q * _bf(torch.tensor(1.0 / np.sqrt(hd))))
@@ -331,20 +334,23 @@ def _emulate_fwd(q, k, v, e, lengths, nh):
             m = torch.full((len(rows), 1), -np.inf)
             l = torch.zeros(len(rows), 1)
             o = torch.zeros(len(rows), hd)
-            for j0 in range(0, n_keys, TILE):
-                cols = torch.arange(j0, min(j0 + TILE, t))
+            for j0 in range(0, n_keys, COLS):
+                cols = torch.arange(j0, min(j0 + COLS, t))
                 s = qs[row, rows] @ k[row, cols].T
-                all_lo = j0 + TILE - 1 - i0 <= -EL
+                all_lo = j0 + COLS - 1 - i0 <= -EL
                 all_hi = j0 - (i0 + WARP_ROWS - 1) >= ER
-                if j0 + TILE <= limit and (all_lo or all_hi):
-                    s = s + qe[row, rows][:, [0 if all_lo else lr]]
+                if j0 + COLS <= limit and (all_lo or all_hi):
+                    # one bias a row: on the row max, and in p's exponent
+                    shift = qe[row, rows][:, [0 if all_lo else lr]]
+                    m_new = torch.maximum(m, s.amax(1, keepdim=True) + shift)
                 else:
                     c = torch.clamp(cols[None] - rows[:, None], -EL, ER) + EL
                     s = s + torch.gather(qe[row, rows], 1, c)
                     s = torch.where(cols[None] >= limit, NEG, s)
-                m_new = torch.maximum(m, s.amax(1, keepdim=True))
+                    shift = 0.0
+                    m_new = torch.maximum(m, s.amax(1, keepdim=True))
                 corr = torch.exp(m - m_new)
-                p = torch.exp(s - m_new)
+                p = torch.exp(s - (m_new - shift))
                 l = l * corr + p.sum(1, keepdim=True)
                 o = o * corr + _bf(p) @ v[row, cols]
                 m = m_new
@@ -375,7 +381,7 @@ def _emulate_bwd(q, k, v, e, lengths, nh, out, lse, dout):
     tiles of 32, reading q_s, qE (bf16) and dd from kernel A's scratch."""
     bh, t, hd = q.shape
     t_pad, lr, num_pos = fa._t_pad(t), EL + ER, e.shape[0]
-    cols_step = BWD_COLS
+    cols_step = COLS
     qs = _bf(q * _bf(torch.tensor(1.0 / np.sqrt(hd))))       # scratch
     qe_scratch = (qs @ e.T).to(torch.bfloat16)               # scratch
     qe = qe_scratch.float()
@@ -496,6 +502,42 @@ def test_mma_tile_schedule_matches_twins(t, lengths, hd):
         r = r.float()
         err = ((a - r).abs().max() / r.abs().max()).item()
         assert err <= 2e-2, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [12, 16, 32, 48, 64, 80, 96, 112, 128])
+def test_scale_is_the_dtype_rounding_of_the_inverse_root(dtype, hd):
+    """The launch's scale, a Python float made once per (dtype, hd), is
+    bit for bit the 0-dim tensor of ``dtype`` that the JAX wrapper's
+    1/√hd rounds to, and scaling q by it gives that tensor's product."""
+    ref = torch.tensor(1.0 / np.sqrt(hd), dtype=dtype)
+    got = fa._scale(dtype, hd)
+    assert isinstance(got, float)
+    assert torch.equal(torch.tensor(got, dtype=dtype), ref)
+    assert got == ref.item()
+    q = torch.from_numpy(np.random.default_rng(hd).normal(
+        size=(3, 5, hd)).astype(np.float32)).to(dtype)
+    assert torch.equal(q * got, q * ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int32, torch.float32])
+def test_lengths_match_the_three_pass_form(dtype):
+    """``_lengths`` (one device pass for a bool mask, two otherwise) gives
+    the int32 counts that ``sum(mask > 0).to(int32)`` gave, for a full
+    clip, a ragged one, a clip with no valid frame and, for int and float
+    masks, entries that are not 0 or 1."""
+    mask = np.zeros((4, 150), dtype=np.float32)
+    mask[0] = 1
+    mask[1, :97] = 1
+    mask[3, :40] = 1
+    if dtype != torch.bool:
+        mask[3, 40:60] = -2           # not positive: not a valid frame
+        mask[1, :10] = 3
+    m = torch.from_numpy(mask).to(dtype)
+    got = fa._lengths(m)
+    ref = torch.sum(m > 0, dim=-1).to(torch.int32)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert got.tolist() == [150, 97, 0, 40]
 
 
 @pytest.mark.parametrize("dtype,hd,kernel", [

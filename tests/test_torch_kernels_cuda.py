@@ -111,7 +111,7 @@ def test_flash_kernel_matches_twin(cuda, dtype, tol, t, hd, nh, left, right,
                for _ in range(3))
     e = (torch.randn(left + right + 1, hd, generator=g) * 0.3).to(cuda, dtype)
     mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
-    name = "flash_rel_fwd" + ("_mma" if fa.flash_kernel(dtype, hd) == "mma"
+    name = "flash_rel_fwd" + ("_wgmma" if fa.flash_kernel(dtype, hd) == "mma"
                               else "")
     before = fa.LAUNCHES[name]
     out, lse = fa.flash_attention_fwd(q, k, v, e, mask, num_heads=nh,
@@ -195,6 +195,30 @@ def test_flash_backward_wgmma_pair_is_deterministic(cuda, t, hd, nh, left,
         assert torch.equal(a, b_), name
 
 
+@pytest.mark.parametrize("t,hd,nh,left,right,short", [
+    c for c in FLASH_CASES if c[1] % 16 == 0], ids=[
+        i for c, i in zip(FLASH_CASES, FLASH_IDS) if c[1] % 16 == 0])
+def test_flash_forward_wgmma_is_deterministic(cuda, t, hd, nh, left, right,
+                                              short):
+    """The bf16 forward (no atomics, fixed reduction orders) gives the same
+    bits of out and lse for the same inputs, launch after launch."""
+    g = torch.Generator().manual_seed(t + hd + short + 2)
+    b = 2
+    q, k, v = (torch.randn(b * nh, t, hd, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(3))
+    e = (torch.randn(left + right + 1, hd, generator=g) * 0.3).to(
+        cuda, torch.bfloat16)
+    mask = (torch.arange(t)[None, :] < torch.tensor([[t], [short]])).to(cuda)
+    kw = dict(num_heads=nh, left_max=left)
+    before = fa.LAUNCHES["flash_rel_fwd_wgmma"]
+    first = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
+    second = fa.flash_attention_fwd(q, k, v, e, mask, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_rel_fwd_wgmma"] == before + 2
+    for name, a, b_ in zip(("out", "lse"), first, second):
+        assert torch.equal(a, b_), name
+
+
 def test_flash_autograd_uses_both_kernels(cuda):
     """``flash_attention`` under grad mode: one forward and one backward
     launch, and the gradients of its twin path on the CPU (fp32, 1e-4)."""
@@ -233,5 +257,5 @@ def test_main_path_shapes_launch_the_mma_kernels(cuda):
     torch.cuda.synchronize()
     grown = {name: n - before.get(name, 0) for name, n in fa.LAUNCHES.items()
              if n != before.get(name, 0)}
-    assert grown == {"flash_rel_fwd_mma": 1, "flash_rel_bwd_wgmma": 1}
+    assert grown == {"flash_rel_fwd_wgmma": 1, "flash_rel_bwd_wgmma": 1}
 
