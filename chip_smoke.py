@@ -39,9 +39,14 @@ on the card, their weights bit-identical. Tensor parallel (phase 12),
 fp32 and bf16 against one process; ``preset=retrieval`` through the CLI,
 each rank's peak memory beside the one-rank peak of the same step, its
 ``final_model`` served in one process; the CLI under NCCL where there are
-two cards. Phases 4, 5, 7, 8, 9, 10, 11 and 12 check that their path went
-through its kernels (and, in int8, its int8 products), counted from
-zero. Each phase
+two cards. The quality tools: ``scripts/torch_int8_quality_eval.py``
+scores phase 8's ``final_model`` in bf16 and int8 over 64 test clips at
+the end of phase 8, and ``scripts/torch_proxy_quality_run.py`` trains the
+midsize retrieval recipe one epoch with every kernel on (phase 13); both
+check that log-mel ran only at frame counts phase 2 held against the
+twin. Phases 4, 5, 7, 8, 9, 10, 11, 12 and 13
+check that their path went through its kernels (and, in int8, its int8
+products), counted from zero. Each phase
 prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
@@ -168,8 +173,27 @@ def phase1():
 
 # (B, samples) of every log-mel launch on the main paths: training
 # micro-batches of 16 at the three CV buckets (the serving request of 16
-# clips of 4.7 s at 82,160 too) and the 30 s serving batch (3 clips → 4)
-MEL_SHAPES = ((16, 41200), (16, 82160), (16, 164080), (4, 491760))
+# clips of 4.7 s at 82,160 too), the quality proxy's micro-batches of 32 at
+# its one 48,000-sample bucket (phase 13) and the 30 s serving batch (3
+# clips → 4); the last is the kernels line's "at" shape
+MEL_SHAPES = ((16, 41200), (16, 82160), (16, 164080), (32, 48000),
+              (4, 491760))
+
+
+def mel_frames(n, frame=400, hop=160):
+    """Log-mel frames of an ``n``-sample bucket."""
+    return 1 + (n - frame) // hop
+
+
+def check_mel_frames(phase, frames):
+    """Fails unless every frame count in ``frames`` (a path's log-mel
+    launches by frame count) is one that phase 2 held against the twin."""
+    checked = {mel_frames(n) for n in BUCKETS} | \
+        {mel_frames(n) for _, n in MEL_SHAPES}
+    if not set(frames) <= checked:
+        raise AssertionError(f"phase {phase}: log-mel launched at frames "
+                             f"{sorted(set(frames) - checked)}, which phase 2 "
+                             f"did not check (it checks {sorted(checked)})")
 
 
 def mel_inputs(g, b, n):
@@ -1473,6 +1497,7 @@ FLAGSHIP_PARAMS = 876_981_059
 FLAGSHIP_TRAINABLE = 367_940_483
 
 
+
 def phase8():
     """Full-width ``preset=retrieval`` training through the port's CLI, in
     process, on synthetic CV-length clips: one epoch of micro-batches of 16
@@ -1482,7 +1507,10 @@ def phase8():
     parameter split, finite losses, the frozen split untouched, the
     trainable split moved, and that every micro-step and every forward ran
     the kernels (K4 24 times a micro-step, K3 24 times a forward with no
-    remat replay, the log-mel kernels once per batch)."""
+    remat replay, the log-mel kernels once per batch). Then scores the
+    final_model with ``scripts/torch_int8_quality_eval.py`` (``_int8_eval``,
+    a path of its own) while the run's directory still holds it. → (the
+    training path's launches, warm clips/s, the int8 eval's launches)."""
     import numpy as np
     import torch
     from speech_transcript_embeddings_torch import train as cli
@@ -1599,7 +1627,8 @@ def phase8():
                f"(norm {norm:.6f})", norm=norm)
         del emb
         torch.cuda.empty_cache()
-    return launches, warm
+        int8_eval = _int8_eval(os.path.join(tmp, "run", "final_model"))
+    return launches, warm, int8_eval
 
 
 # synthetic clips of the flagship phase: the fewest whose train split still
@@ -3052,6 +3081,194 @@ def _tp_profile_micro_step(res):
                      for ms, k, c in rows[:12]])
 
 
+# the quality tools: the int8 eval (in phase 8) over the first INT8_POOL
+# test clips of phase 8's corpus; phase 13's one epoch of the midsize
+# retrieval recipe with every kernel on (run C of PERF.md's "Quality on
+# trained weights", cut to PROXY_CLIPS training clips)
+INT8_POOL = 64
+PROXY_CLIPS = 1024
+PROXY_KERNELS = ("model.audio.use_flash_attention=true",
+                 "model.frontend.use_pallas=true")
+PORT_KERNELS = ("log_mel_fft_kernel", "log_mel_normalize_kernel",
+                "flash_rel_fwd_wgmma_kernel", "flash_rel_bwd_dq_wgmma_kernel",
+                "flash_rel_bwd_dkv_wgmma_kernel")
+
+
+def _script(name):
+    """``scripts/<name>.py`` as a module (the directory is no package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _reset_launches():
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.ops import quant
+    fk.log_mel.launches = 0
+    fk.log_mel.launches_by_frames.clear()
+    fk.normalize_and_stack.launches = 0
+    fa.LAUNCHES.clear()
+    quant.int8_matmul.launches = 0
+
+
+def _launches():
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.ops import quant
+    return {"log_mel": fk.log_mel.launches,
+            "log_mel_normalize": fk.normalize_and_stack.launches,
+            **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS},
+            "int8_matmul": quant.int8_matmul.launches}
+
+
+def phase13():
+    """The quality proxy on the card: ``scripts/torch_proxy_quality_run.py``,
+    one epoch of the midsize retrieval recipe at ``PROXY_CLIPS`` clips with
+    flash attention and the log-mel kernels on: the loss falls across the
+    epoch, the validation gap is positive, K1-K4 launched as often as the
+    run's batches say, log-mel only at frame counts phase 2 checked, and one
+    warm micro-step profiled. (The other quality tool, the int8 eval, runs
+    in phase 8 on its full-width final_model: ``_int8_eval``.)"""
+    return _phase13_proxy()
+
+
+def _int8_eval(checkpoint):
+    """``scripts/torch_int8_quality_eval.py`` on ``checkpoint`` (phase 8's
+    full-width final_model) over its first ``INT8_POOL`` test clips, the
+    counts from zero: the fp and int8 embeddings finite and unit-norm, int8
+    products launched, log-mel only at frame counts phase 2 checked. The
+    JSON lands beside the checkpoint. → the path's launches."""
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    tint8 = _script("torch_int8_quality_eval")
+    seen = []
+    embed_split = tint8.embed_split
+
+    def recording(emb, texts, audios, chunk=32):
+        te, ae = embed_split(emb, texts, audios, chunk)
+        seen.append((te, ae))
+        return te, ae
+
+    tint8.embed_split = recording
+    torch.cuda.empty_cache()
+    with open(os.path.join(checkpoint, "metadata.json")) as f:
+        dim = json.load(f)["config"]["model"]["heads"]["projection_dim"]
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = tint8.main(["--checkpoint", checkpoint, "--limit", str(INT8_POOL),
+                      "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    frames = dict(fk.log_mel.launches_by_frames)
+    with open(os.path.join(os.path.dirname(checkpoint),
+                           "int8_quality_eval.json")) as f:
+        written = json.load(f)
+    if written != json.loads(json.dumps(res)) or set(written) != {
+            "checkpoint", "pool", "fp", "int8", "delta_int8_minus_fp"}:
+        raise AssertionError(f"int8_quality_eval.json {sorted(written)}")
+    if res["pool"] != INT8_POOL or len(seen) != 2:
+        raise AssertionError(f"pool {res['pool']}, {len(seen)} passes")
+    norm_err = 0.0
+    for what, (te, ae) in zip(("fp", "int8"), seen):
+        for name, e in (("text", te), ("audio", ae)):
+            if e.shape != (INT8_POOL, dim) or not np.isfinite(e).all():
+                raise AssertionError(f"{what} {name} embeddings {e.shape}")
+            err = float(np.abs(np.linalg.norm(e.astype(np.float64), axis=1)
+                               - 1).max())
+            if err > 1e-3:
+                raise AssertionError(f"{what} {name} embedding norms off 1 "
+                                     f"by {err}")
+            norm_err = max(norm_err, err)
+    if not all(np.isfinite(v) for p in ("fp", "int8")
+               for v in res[p].values()):
+        raise AssertionError(f"metrics {res}")
+    if launches["int8_matmul"] == 0:
+        raise AssertionError(f"no int8 product launched: {launches}")
+    check_mel_frames(8, frames)
+    d = res["delta_int8_minus_fp"]
+    log(8, f"int8 eval (scripts/torch_int8_quality_eval.py) of final_model "
+           f"over {INT8_POOL} test clips in {secs:.1f} s: fp R@1 "
+           f"{res['fp']['recall@1']:.4f}, gap "
+           f"{res['fp']['similarity_gap']:.4f}; ΔR@1 {d['recall@1']}, Δgap "
+           f"{d['similarity_gap']}, ΔMRR {d['mrr']}; embeddings finite, norms "
+           f"within {norm_err:.1e} of 1; log-mel frames {frames}; launches "
+           f"{launches}",
+        seconds=secs, fp=res["fp"], int8=res["int8"], delta=d,
+        norm_err=norm_err, frames=frames, launches=launches)
+    return launches
+
+
+def _phase13_proxy():
+    import numpy as np
+    import torch
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    tproxy = _script("torch_proxy_quality_run")
+    torch.cuda.empty_cache()
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = tproxy.main([os.path.join(tmp, "proxy"), "--preset-retrieval",
+                           "--samples", str(PROXY_CLIPS), "--acc", "1",
+                           "--epochs", "1", "--device", "cuda",
+                           "--extra", *PROXY_KERNELS])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _launches()
+        frames = dict(fk.log_mel.launches_by_frames)
+        with open(os.path.join(tmp, "proxy", "proxy_summary.json")) as f:
+            summary = json.load(f)
+    cfg, ep = res["cfg"], res["epochs"][0]
+    layers = cfg.model.audio.num_layers
+    micro, n_eval = ep["train_batches"], ep["eval_batches"]
+    forwards = micro + n_eval + res["test_batches"] + res["retrieval_batches"]
+    # remat_policy=full replays each block's forward, K3 included, in the
+    # backward
+    want = {"flash_rel_bwd_wgmma": layers * micro,
+            "flash_rel_fwd_wgmma": layers * (forwards + micro),
+            "flash_rel_fwd": 0, "flash_rel_bwd": 0, "log_mel": forwards,
+            "log_mel_normalize": forwards, "int8_matmul": 0}
+    if launches != want:
+        raise AssertionError(
+            f"launches {launches} != {want} for {micro} micro-steps, "
+            f"{n_eval} eval, {res['test_batches']} test and "
+            f"{res['retrieval_batches']} retrieval batches")
+    if summary != json.loads(json.dumps(res["summary"])):
+        raise AssertionError("proxy_summary.json is not the run's summary")
+    losses = [s["loss"] for s in res["step_log"]]
+    k = max(len(losses) // 4, 1)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    gap = summary["val_gap_trajectory"][0]
+    if len(losses) != micro or not np.isfinite(losses).all() or \
+            not last < first:
+        raise AssertionError(f"losses {losses}")
+    if not gap > 0:
+        raise AssertionError(f"validation gap {gap}")
+    check_mel_frames(13, frames)
+    log(13, f"midsize proxy, {PROXY_CLIPS} clips, one epoch with K1-K4 on, "
+            f"through the script in {secs:.1f} s: {micro} micro-steps of "
+            f"{cfg.data.batch_size}, loss {first:.4f} → {last:.4f} (means of "
+            f"the first and last {k}), validation gap {gap:.4f}, test "
+            f"R@1 {summary['retrieval']['recall@1']:.4f}; "
+            f"{ep['clips_per_sec']:.1f} clips/s over the epoch (host), "
+            f"{ep['warm_clips_per_sec']:.1f} warm; log-mel frames {frames}; "
+            f"launches {launches}",
+        seconds=secs, micro_steps=micro, loss_first=first, loss_last=last,
+        val_gap=gap, retrieval=summary["retrieval"],
+        clips_per_s=ep["clips_per_sec"],
+        warm_clips_per_s=ep["warm_clips_per_sec"], frames=frames,
+        launches=launches)
+    step = _profile_micro_step(13, res)
+    del res
+    torch.cuda.empty_cache()
+    return launches, step
+
+
 def _profile_micro_step(phase, res):
     """One warm micro-step of a finished run's model at its longest train
     bucket, timed on the host clock and under torch.profiler (after the
@@ -3086,15 +3303,18 @@ def _profile_micro_step(phase, res):
                step_ms=plain_step_ms, profiled_step_ms=step_ms,
                device_busy_ms=busy, idle_share=1 - busy / plain_step_ms,
                collective_ms=sum(ms for ms, _ in nccl),
-               collective_kernels=sum(c for _, c in nccl))
+               collective_kernels=sum(c for _, c in nccl),
+               # the port's own kernels a micro-step, by the trace
+               kernel_calls={name: sum(c for _, k, c in rows if name in k)
+                             for name in PORT_KERNELS})
     log(phase, f"one warm micro-step at {out['samples']} samples "
                f"(B={batch['waveform'].shape[0]}): {plain_step_ms:.1f} ms "
                f"(host clock, ends in a device sync), {step_ms:.1f} ms under "
                f"the profiler with device kernels busy {busy:.1f} ms (idle "
                f"{out['idle_share']:.0%} of the unprofiled step), NCCL "
                f"kernels {out['collective_ms']:.2f} ms in "
-               f"{out['collective_kernels']} launches; top device "
-               f"time: {top}",
+               f"{out['collective_kernels']} launches; the port's "
+               f"kernels {out['kernel_calls']}; top device time: {top}",
         **out, top=[{"kernel": k, "calls": c, "ms": ms}
                     for ms, k, c in rows[:25]])
     del state
@@ -3136,12 +3356,13 @@ def main():
     serve, serve_int8 = phase5()
     bwd_err, bwd_abs_err, bwd_times = phase6()
     train_fp32 = phase7()
-    train, warm_clips_per_s = phase8()
+    train, warm_clips_per_s, int8_eval = phase8()
     flagship, flagship_step, _ = phase9()
     converted = phase10()
     dp_fp32, dp, dp2 = phase11()
     tp_small, tp = phase12()
-    paths = {"serve": serve, "serve_int8": serve_int8, "train": train,
+    proxy, proxy_step = phase13()
+    paths = {"int8_eval": int8_eval, "quality_proxy": proxy, "serve": serve, "serve_int8": serve_int8, "train": train,
              "flagship_train": flagship, "converted_train": converted,
              "dp_train": dp["launches"], "tp_train": tp["launches"],
              "tp_bf16": tp_small["bfloat16"], "serve_fp32": serve_fp32,
@@ -3205,7 +3426,8 @@ def main():
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",
-                     "converted_train", "dp_train", "tp_train", "tp_bf16") \
+                     "converted_train", "dp_train", "tp_train", "tp_bf16",
+                     "int8_eval", "quality_proxy") \
             if k["name"] not in ("flash_rel_fwd", "flash_rel_bwd") else (
                 "serve_fp32", "train_fp32", "dp_fp32", "tp_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)
@@ -3226,7 +3448,9 @@ def main():
                    "train_warm_clips_per_s": warm_clips_per_s,
                    "int8_products": {"small_model": int8_small,
                                      "serve_int8": serve_int8[
-                                         "int8_products"]},
+                                         "int8_products"],
+                                     "int8_eval": int8_eval["int8_matmul"]},
+                   "quality_proxy_micro_step": proxy_step,
                    "flagship_micro_step": flagship_step,
                    "dp_micro_step_world_1": dp["step"],
                    "dp_all_reduce_world_1": dp["all_reduce"],
