@@ -44,9 +44,13 @@ scores phase 8's ``final_model`` in bf16 and int8 over 64 test clips at
 the end of phase 8, and ``scripts/torch_proxy_quality_run.py`` trains the
 midsize retrieval recipe one epoch with every kernel on (phase 13); both
 check that log-mel ran only at frame counts phase 2 held against the
-twin. Phases 4, 5, 7, 8, 9, 10, 11, 12 and 13
+twin. The benchmark tools (phase 14): ``bench_torch.py`` (the retrieval
+step on the length mix and at 10 s) and ``scripts/torch_infer_bench.py``
+in bf16 and int8, each a process of its own, every reading under the
+card's bf16 peak. Phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 14
 check that their path went through its kernels (and, in int8, its int8
-products), counted from zero. Each phase
+products), counted from zero; the last line before the result lists each
+phase's seconds. Each phase
 prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
@@ -103,29 +107,28 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 def device_split(fn, iters=20, warmup=3):
     """{kernel name: mean device ms a call} of the device kernels ``fn``
-    launches (torch.profiler), over ``iters`` calls after ``warmup``: each
-    kernel's mean over its recorded launches, times its launches a call. A
-    trace can miss one launch (seen on the card: 19 of 20 recorded in each
-    trace after phase 2), so the mean is not taken over ``iters``; a trace
-    that lost more (fewer kernels than calls less one) is taken again,
-    twice at most."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    launches (torch.profiler, in ``utils/bench.py``'s padded
+    ``device_trace``), over ``iters`` calls after ``warmup``: each kernel's
+    mean over its recorded launches, times its launches a call. A trace
+    can miss a launch (seen on the card before the window was padded: 19
+    of 20 recorded in each trace after phase 2, and fewer in a later run),
+    so the mean is not taken over ``iters``; a trace that lost more (fewer
+    kernels than calls less one) is taken again, twice at most."""
+    from speech_transcript_embeddings_torch.utils.bench import device_trace
     for _ in range(warmup):
         fn()
+    recorded = []
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         rows = _device_rows(prof)
-        if sum(calls for _, _, calls in rows) >= iters - 1:
+        recorded.append(sum(calls for _, _, calls in rows))
+        if recorded[-1] >= iters - 1:
             return {name: ms / calls * max(1, round(calls / iters))
                     for ms, name, calls in rows}
-    raise RuntimeError("torch.profiler recorded fewer device kernels than "
-                       "calls less one three times")
+    raise RuntimeError(f"torch.profiler recorded {recorded} device kernels "
+                       f"in three traces of {iters} calls")
 
 
 def device_ms(fn, iters=20, warmup=3):
@@ -174,10 +177,12 @@ def phase1():
 # (B, samples) of every log-mel launch on the main paths: training
 # micro-batches of 16 at the three CV buckets (the serving request of 16
 # clips of 4.7 s at 82,160 too), the quality proxy's micro-batches of 32 at
-# its one 48,000-sample bucket (phase 13) and the 30 s serving batch (3
-# clips → 4); the last is the kernels line's "at" shape
+# its one 48,000-sample bucket (phase 13), the benchmark tools' 10 s clips
+# (phase 14: bench_torch.py's fixed step at B = 16, the embed step's
+# B = 64 at the same frame count) and the 30 s serving batch (3 clips → 4);
+# the last is the kernels line's "at" shape
 MEL_SHAPES = ((16, 41200), (16, 82160), (16, 164080), (32, 48000),
-              (4, 491760))
+              (16, 160000), (4, 491760))
 
 
 def mel_frames(n, frame=400, hop=160):
@@ -917,13 +922,11 @@ def _int_mm_rules():
     contiguous = torch._int_mm(x[:256], w_kn)
     out["contiguous weight exact"] = bool(torch.equal(contiguous, plain))
     out["transposed view equals it"] = bool(torch.equal(view, contiguous))
-    from torch.profiler import ProfilerActivity, profile
+    from speech_transcript_embeddings_torch.utils.bench import device_trace
     for what, w in (("contiguous", w_kn), ("transposed view", w_nk.t())):
         torch._int_mm(x, w)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             torch._int_mm(x, w)
-            torch.cuda.synchronize()
         out[f"{what}: device kernels (ms, name, calls)"] = [
             (round(ms, 4), k[:60], c) for ms, k, c in _device_rows(prof)]
         # CUDA events over back-to-back calls (4096 × 1024 × 4096)
@@ -1247,7 +1250,7 @@ def _breakdown(embedder, batches, tag):
     request's time (``batches``: name → (clips, HTTP ms)). Runs after the
     launch counts were read. → name → the numbers."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from speech_transcript_embeddings_torch.utils.bench import device_trace
     out = {}
     for name, (clips, http_ms) in batches.items():
         embedder.embed_audios(clips)
@@ -1255,8 +1258,7 @@ def _breakdown(embedder, batches, tag):
         for _ in range(3):
             embedder.embed_audios(clips)
         direct = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             t0 = time.perf_counter()
             embedder.embed_audios(clips)
             wall = (time.perf_counter() - t0) * 1e3
@@ -3029,8 +3031,8 @@ def _tp_profile_micro_step(res):
     host↔device copies, which are the gloo collectives' on the card)."""
     import torch
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
     from speech_transcript_embeddings_torch.training import train_step as ts
+    from speech_transcript_embeddings_torch.utils.bench import device_trace
     cfg = res["cfg"]
     state = ts.create_train_state(res["state"].model, cfg,
                                   total_steps=TP_UPDATES,
@@ -3061,10 +3063,8 @@ def _tp_profile_micro_step(res):
         synced = time.perf_counter() - t0
     finally:
         dist.all_reduce = plain
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         step()
-        torch.cuda.synchronize()
     # gloo's device rows: its host↔device copies, and "gloo:" spans that
     # repeat the copies' time (left out, or they would count twice)
     rows = [r for r in _device_rows(prof) if not r[1].startswith("gloo:")]
@@ -3103,27 +3103,6 @@ def _script(name):
     return module
 
 
-def _reset_launches():
-    from speech_transcript_embeddings_torch.ops import flash_attention as fa
-    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
-    from speech_transcript_embeddings_torch.ops import quant
-    fk.log_mel.launches = 0
-    fk.log_mel.launches_by_frames.clear()
-    fk.normalize_and_stack.launches = 0
-    fa.LAUNCHES.clear()
-    quant.int8_matmul.launches = 0
-
-
-def _launches():
-    from speech_transcript_embeddings_torch.ops import flash_attention as fa
-    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
-    from speech_transcript_embeddings_torch.ops import quant
-    return {"log_mel": fk.log_mel.launches,
-            "log_mel_normalize": fk.normalize_and_stack.launches,
-            **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS},
-            "int8_matmul": quant.int8_matmul.launches}
-
-
 def phase13():
     """The quality proxy on the card: ``scripts/torch_proxy_quality_run.py``,
     one epoch of the midsize retrieval recipe at ``PROXY_CLIPS`` clips with
@@ -3143,7 +3122,7 @@ def _int8_eval(checkpoint):
     JSON lands beside the checkpoint. → the path's launches."""
     import numpy as np
     import torch
-    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.utils import bench as ub
     tint8 = _script("torch_int8_quality_eval")
     seen = []
     embed_split = tint8.embed_split
@@ -3157,13 +3136,13 @@ def _int8_eval(checkpoint):
     torch.cuda.empty_cache()
     with open(os.path.join(checkpoint, "metadata.json")) as f:
         dim = json.load(f)["config"]["model"]["heads"]["projection_dim"]
-    _reset_launches()
+    ub.reset_launches()
     t0 = time.perf_counter()
     res = tint8.main(["--checkpoint", checkpoint, "--limit", str(INT8_POOL),
                       "--device", "cuda"])
     secs = time.perf_counter() - t0
-    launches = _launches()
-    frames = dict(fk.log_mel.launches_by_frames)
+    launches = ub.launches()
+    frames = ub.log_mel_frames()
     with open(os.path.join(os.path.dirname(checkpoint),
                            "int8_quality_eval.json")) as f:
         written = json.load(f)
@@ -3205,13 +3184,13 @@ def _int8_eval(checkpoint):
 def _phase13_proxy():
     import numpy as np
     import torch
-    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.utils import bench as ub
     tproxy = _script("torch_proxy_quality_run")
     torch.cuda.empty_cache()
     build_dir = os.path.join(ROOT, REPO, "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        _reset_launches()
+        ub.reset_launches()
         t0 = time.perf_counter()
         res = tproxy.main([os.path.join(tmp, "proxy"), "--preset-retrieval",
                            "--samples", str(PROXY_CLIPS), "--acc", "1",
@@ -3219,8 +3198,8 @@ def _phase13_proxy():
                            "--extra", *PROXY_KERNELS])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launches = _launches()
-        frames = dict(fk.log_mel.launches_by_frames)
+        launches = ub.launches()
+        frames = ub.log_mel_frames()
         with open(os.path.join(tmp, "proxy", "proxy_summary.json")) as f:
             summary = json.load(f)
     cfg, ep = res["cfg"], res["epochs"][0]
@@ -3269,14 +3248,78 @@ def _phase13_proxy():
     return launches, step
 
 
+# the benchmark tools of phase 14, each run from the checkout in a process
+# of its own: → the kernels its JSON line must show launched
+BENCH_RUNS = {"bench": (["bench_torch.py"], ("K1", "K2", "K3", "K4")),
+              "embed_bench": (["scripts/torch_infer_bench.py"],
+                              ("K1", "K2", "K3")),
+              "embed_bench_int8": (["scripts/torch_infer_bench.py", "--int8"],
+                                   ("K1", "K2", "K3"))}
+
+
+def phase14():
+    """The benchmark tools on the card: ``bench_torch.py`` with its default
+    config (the length mix and the fixed 10 s step of ``preset=retrieval``
+    at B = 16) and ``scripts/torch_infer_bench.py`` in bf16 and int8 (B =
+    64 × 10 s), each a process started from the checkout. Each prints its
+    JSON line (printed here too) only when every reading held the ceiling
+    (the tool raises above the card's bf16 peak) and its kernels launched
+    over its timed steps, counted from zero; this phase checks that line:
+    HFU or MFU in (0, 1], K1-K4 launched (K1-K3 in the embed step, which
+    has no backward; int8 products under ``--int8``), clips/s finite and
+    above 0, and log-mel only at frame counts phase 2 checked. → each
+    tool's launches."""
+    import torch
+    from speech_transcript_embeddings_torch.utils import bench as ub
+    torch.cuda.empty_cache()
+    out = {}
+    for name, (cmd, kernels) in BENCH_RUNS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *cmd], cwd=ROOT,
+                              capture_output=True, text=True, timeout=900)
+        secs = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{' '.join(cmd)} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(json.dumps(rec), flush=True)
+        clips = rec["value"] if name == "bench" else rec["clips_per_s"]
+        ratios = [rec["hfu"] if name == "bench" else rec["mfu"]]
+        if name == "bench":
+            ratios += [rec["fixed_10s"]["hfu"]] + [b["hfu"] for b in
+                                                   rec["buckets"]]
+        if not (math.isfinite(clips) and clips > 0) or not all(
+                0 < r <= 1 for r in ratios):
+            raise AssertionError(f"{name}: clips/s {clips}, HFU/MFU {ratios}")
+        ub.require_launches(rec["kernel_launches"], kernels)
+        if name.endswith("int8") and rec["int8_products"] == 0:
+            raise AssertionError(f"{name}: no int8 product launched")
+        check_mel_frames(14, {int(k): v for k, v in
+                              rec["log_mel_frames"].items()})
+        log(14, f"{' '.join(cmd)} in {secs:.1f} s: {clips:.2f} clips/s, "
+                + (f"fixed 10 s {rec['fixed_10s_value']:.2f}, HFU "
+                   f"{rec['hfu']:.1%} (fixed 10 s "
+                   f"{rec['fixed_10s']['hfu']:.1%}), " if name == "bench"
+                   else f"MFU {rec['mfu']:.1%}, ")
+                + f"device busy {rec['device_busy_ms']:.1f} ms a step (idle "
+                  f"{rec['idle_share']:.0%}), peak "
+                  f"{rec['peak_memory_gib']:.2f} GiB, SM "
+                  f"{rec['sm_clock_mhz']['median']:.0f} MHz, "
+                  f"{rec['power_w']['median']:.0f} W; launches "
+                  f"{rec['kernel_launches']}",
+            seconds=secs, name=name, result=rec)
+        out[name] = rec["kernel_launches"]
+    return out
+
+
 def _profile_micro_step(phase, res):
     """One warm micro-step of a finished run's model at its longest train
     bucket, timed on the host clock and under torch.profiler (after the
     launch counts were read). The run dropped its optimizer moments for
     the test phase, so the step gets a fresh optimizer."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from speech_transcript_embeddings_torch.training import train_step as ts
+    from speech_transcript_embeddings_torch.utils.bench import device_trace
     cfg = res["cfg"]
     state = ts.create_train_state(res["state"].model, cfg, total_steps=1000)
     batch = max(res["pipeline"].epoch_batches(res["source"], "train", 1),
@@ -3288,8 +3331,7 @@ def _profile_micro_step(phase, res):
     ts.train_step(cfg, state, res["frontend"], batch, gen)
     torch.cuda.synchronize()
     plain_step_ms = (time.perf_counter() - t1) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         t1 = time.perf_counter()
         ts.train_step(cfg, state, res["frontend"], batch, gen)
         torch.cuda.synchronize()
@@ -3346,26 +3388,44 @@ def log_mel_bound(n, mel_nnz, b=4, frame=400, hop=160, fft=512, mels=80):
     return raw, norm, dft_matmul
 
 
+PHASE_SECONDS: dict = {}
+
+
+def timed(n, phase):
+    """``phase()``, its seconds recorded under ``n``."""
+    t0 = time.perf_counter()
+    try:
+        return phase()
+    finally:
+        PHASE_SECONDS[n] = time.perf_counter() - t0
+
+
 def main():
     import torch
-    card = phase0()
-    phase1()
-    mel_err, mel_times = phase2()
-    flash_err, fwd_times = phase3()
-    serve_fp32, int8_small = phase4()
-    serve, serve_int8 = phase5()
-    bwd_err, bwd_abs_err, bwd_times = phase6()
-    train_fp32 = phase7()
-    train, warm_clips_per_s, int8_eval = phase8()
-    flagship, flagship_step, _ = phase9()
-    converted = phase10()
-    dp_fp32, dp, dp2 = phase11()
-    tp_small, tp = phase12()
-    proxy, proxy_step = phase13()
+    start = time.perf_counter()
+    card = timed(0, phase0)
+    timed(1, phase1)
+    mel_err, mel_times = timed(2, phase2)
+    flash_err, fwd_times = timed(3, phase3)
+    serve_fp32, int8_small = timed(4, phase4)
+    serve, serve_int8 = timed(5, phase5)
+    bwd_err, bwd_abs_err, bwd_times = timed(6, phase6)
+    train_fp32 = timed(7, phase7)
+    train, warm_clips_per_s, int8_eval = timed(8, phase8)
+    flagship, flagship_step, _ = timed(9, phase9)
+    converted = timed(10, phase10)
+    dp_fp32, dp, dp2 = timed(11, phase11)
+    tp_small, tp = timed(12, phase12)
+    proxy, proxy_step = timed(13, phase13)
+    bench = timed(14, phase14)
     paths = {"int8_eval": int8_eval, "quality_proxy": proxy, "serve": serve, "serve_int8": serve_int8, "train": train,
              "flagship_train": flagship, "converted_train": converted,
              "dp_train": dp["launches"], "tp_train": tp["launches"],
-             "tp_bf16": tp_small["bfloat16"], "serve_fp32": serve_fp32,
+             "tp_bf16": tp_small["bfloat16"], "bench": bench["bench"],
+             "embed_bench": {k: bench["embed_bench"][k]
+                             + bench["embed_bench_int8"][k]
+                             for k in bench["embed_bench"]},
+             "serve_fp32": serve_fp32,
              "train_fp32": train_fp32, "dp_fp32": dp_fp32,
              "tp_fp32": tp_small["float32"]}
     by_path = {name: {p: c.get(name, 0) for p, c in paths.items()}
@@ -3427,7 +3487,7 @@ def main():
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",
                      "converted_train", "dp_train", "tp_train", "tp_bf16",
-                     "int8_eval", "quality_proxy") \
+                     "int8_eval", "quality_proxy", "bench", "embed_bench") \
             if k["name"] not in ("flash_rel_fwd", "flash_rel_bwd") else (
                 "serve_fp32", "train_fp32", "dp_fp32", "tp_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)
@@ -3455,8 +3515,13 @@ def main():
                    "dp_micro_step_world_1": dp["step"],
                    "dp_all_reduce_world_1": dp["all_reduce"],
                    "dp_two_rank_gloo": dp2, "tp_two_rank_gloo": tp,
+                   "phase_seconds": {**PHASE_SECONDS,
+                                     "total": time.perf_counter() - start},
                    **RECORD},
                   f, indent=1)
+    print("phase seconds: " + ", ".join(
+        f"{n}: {t:.1f}" for n, t in PHASE_SECONDS.items())
+        + f"; total {time.perf_counter() - start:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,7 +140,11 @@ class Embedder:
             lens[i] = min(lens[i], bucket)
         return wav, np.asarray(lens, np.int32)
 
-    def _t(self, a: np.ndarray) -> torch.Tensor:
+    def _t(self, a) -> torch.Tensor:
+        """A host array, or a tensor already placed (a benchmark's
+        device-resident batch), on the Embedder's device."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ---- model calls ---------------------------------------------------------

@@ -207,6 +207,27 @@ def barrier(group=None) -> None:
         dist.barrier(group=group)
 
 
+# store barriers passed in this process: each call waits on a key of its own
+_STORE_BARRIERS = [0]
+
+
+def store_barrier() -> None:
+    """Wait until every rank of the default group reaches this call,
+    through the group's store and none of its connections. A rank that
+    leaves the group early (outside a shrunk mesh) closes its sockets, and
+    gloo's ``init_process_group`` fails on a slower rank that is still
+    connecting to it ("Connection closed by peer"); no rank passes this
+    before every rank has finished ``init_process_group``."""
+    if not initialized():
+        return
+    _STORE_BARRIERS[0] += 1
+    key = f"ste_store_barrier/{_STORE_BARRIERS[0]}"
+    store = dist.distributed_c10d._get_default_store()
+    if store.add(key, 1) == dist.get_world_size():
+        store.set(key + "/all", "1")
+    store.wait([key + "/all"])
+
+
 # ---- the model axis (tensor parallel) ---------------------------------------
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -132,7 +132,8 @@ def make_mesh(cfg) -> Mesh:
     value the first ``num_data·num_model`` ranks, and a larger one raises.
     A global batch the data axis does not divide shrinks it to
     gcd(batch, data); JAX's warning is the mesh's ``note``. Collective under
-    a process group: every rank makes the axes' groups, in one order."""
+    a process group: every rank makes the axes' groups, in one order, and
+    where ranks are left outside, waits for every rank at the store."""
     world = collectives.world_size()
     rank = collectives.rank()
     model = max(cfg.mesh.num_model, 1)
@@ -154,8 +155,13 @@ def make_mesh(cfg) -> Mesh:
     if not collectives.initialized():
         return Mesh(data=data, model=model, note=note)
     local = int(os.environ.get("LOCAL_RANK", rank))
+    groups = _axis_groups(world, rank, data, model)
+    if data * model < world:
+        # the ranks left outside return at once: not before every rank
+        # has joined the process group
+        collectives.store_barrier()
     return Mesh(data=data, model=model, rank=rank, local_rank=local,
-                note=note, **_axis_groups(world, rank, data, model))
+                note=note, **groups)
 
 
 def _axis_groups(world: int, rank: int, data: int, model: int) -> dict:

@@ -80,6 +80,10 @@ def create_train_state(model: DualEncoderModel, cfg: ExperimentConfig,
 
 
 def _to_device(a, device) -> torch.Tensor:
+    """A host array, or a tensor already placed (a benchmark's
+    device-resident batch), on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device,
                                                         non_blocking=True)
 
