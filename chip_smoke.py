@@ -47,11 +47,14 @@ check that log-mel ran only at frame counts phase 2 held against the
 twin. The benchmark tools (phase 14): ``bench_torch.py`` (the retrieval
 step on the length mix and at 10 s) and ``scripts/torch_infer_bench.py``
 in bf16 and int8, each a process of its own, every reading under the
-card's bf16 peak. Phases 4, 5, 7, 8, 9, 10, 11, 12, 13 and 14
-check that their path went through its kernels (and, in int8, its int8
-products), counted from zero; the last line before the result lists each
-phase's seconds. Each phase
-prints a line per check; any failure raises and exits non-zero. Detailed
+card's bf16 peak. The step-diagnosis tools (phase 15):
+``scripts/torch_profile_b16.py --steps 3`` (the retrieval step traced and
+attributed: device time by kernel family, the idle gaps by the host op
+that launched the kernel ending each) and a short
+``scripts/torch_block_breakdown.py``. Phases 4, 5, 7, 8, 9, 10, 11, 12,
+13, 14 and 15 check that their path went through its kernels (and, in
+int8, its int8 products), counted from zero; the last line before the
+result lists each phase's seconds. Each phase prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
 """
@@ -3312,6 +3315,100 @@ def phase14():
     return out
 
 
+# the step-diagnosis tools of phase 15, each run from the checkout in a
+# process of its own
+PROFILE_STEPS = 3
+BREAKDOWN_BATCH = 8
+PROFILE_KERNELS = {"K1": "K1 log-mel normalise", "K2": "K2 log-mel",
+                   "K3": "K3 flash forward", "K4": "K4 flash backward"}
+
+
+def _tool_line(cmd, timeout=300):
+    """Run ``scripts/<cmd[0]>`` with ``cmd[1:]`` from the checkout: → its
+    last JSON line and the seconds it took; a non-zero exit raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join("scripts", cmd[0]),
+                           *cmd[1:]], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return (json.loads(proc.stdout.strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
+def phase15():
+    """The step-diagnosis tools on the card: ``scripts/torch_profile_b16.py
+    --steps 3`` (the ``retrieval`` step at fixed 10 s, B = 16, traced and
+    attributed) and ``scripts/torch_block_breakdown.py`` at B = 8, each a
+    process started from the checkout. The attribution's families sum to
+    its ``device_ms_per_step`` within 1%; K1-K4 each have device time; busy
+    plus idle equals the device span within 2% a step; at least 90% of
+    the idle time is attributed to a named host op; K1-K4 launched in the
+    untimed window, log-mel only at frame counts phase 2 checked. Every
+    block module reads a finite time, none is an error record, and K3 and
+    K4 launched. → each tool's launches."""
+    import torch
+    from speech_transcript_embeddings_torch.utils import bench as ub
+    torch.cuda.empty_cache()
+    build_dir = os.path.join(ROOT, REPO, "_build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        line, secs = _tool_line(["torch_profile_b16.py", "--steps",
+                                 str(PROFILE_STEPS), "--out", tmp])
+        with open(line["written"]) as f:
+            prof = json.load(f)
+    fams = {r["family"]: r["ms_per_step"] for r in prof["by_family"]}
+    dev, busy = prof["device_ms_per_step"], prof["device_busy_ms_per_step"]
+    idle, span = prof["idle_ms_per_step"], prof["span_ms_per_step"]
+    if abs(sum(fams.values()) - dev) > 0.01 * dev:
+        raise AssertionError(f"families sum to {sum(fams.values())} ms, "
+                             f"device time {dev} ms a step")
+    if not all(fams.get(f, 0) > 0 for f in PROFILE_KERNELS.values()):
+        raise AssertionError(f"a kernel of K1-K4 has no device time: {fams}")
+    if abs(busy + idle - span) > 0.02 * span:
+        raise AssertionError(f"busy {busy} + idle {idle} ms != span {span}")
+    if prof["idle_attributed_share"] < 0.9:
+        raise AssertionError(f"only {prof['idle_attributed_share']:.1%} of "
+                             "the idle time attributed to a host op")
+    ub.require_launches(prof["kernel_launches"], tuple(PROFILE_KERNELS))
+    check_mel_frames(15, {int(k): v for k, v in
+                          prof["log_mel_frames"].items()})
+    top = prof["idle_gaps"]["by_outermost_op"][:3]
+    log(15, f"scripts/torch_profile_b16.py --steps {PROFILE_STEPS} in "
+            f"{secs:.1f} s: untraced step {prof['untraced_step_ms']:.1f} ms, "
+            f"device busy {prof['device_busy_ms']:.1f}; traced "
+            f"{dev:.1f} ms of kernels a step ({prof['kernels_per_step']:.0f} "
+            f"launches), busy {busy:.1f}, idle {idle:.1f} of a "
+            f"{span:.1f} ms span, {prof['idle_attributed_share']:.1%} "
+            f"attributed; families " + ", ".join(
+                f"{k} {v:.2f}" for k, v in fams.items())
+            + "; top idle by outermost op: " + "; ".join(
+                f"{r['op']} {r['ms_per_step']:.1f} ms" for r in top),
+        seconds=secs, families=fams, device_ms_per_step=dev,
+        busy_ms_per_step=busy, idle_ms_per_step=idle, span_ms_per_step=span,
+        idle_attributed_share=prof["idle_attributed_share"],
+        untraced_step_ms=prof["untraced_step_ms"],
+        launches=prof["kernel_launches"])
+    out = {"profile": prof["kernel_launches"]}
+    line, secs = _tool_line(["torch_block_breakdown.py", "--batch",
+                             str(BREAKDOWN_BATCH)])
+    bad = [r for r in line["results"] if "error" in r or not all(
+        math.isfinite(r[k]) and r[k] > 0 for k in ("fwd_ms", "fwd_bwd_ms"))]
+    if bad or len(line["results"]) != 5:
+        raise AssertionError(f"block breakdown: {line['results']}")
+    ub.require_launches(line["kernel_launches"], ("K3", "K4"))
+    log(15, f"scripts/torch_block_breakdown.py --batch {BREAKDOWN_BATCH} in "
+            f"{secs:.1f} s: " + "; ".join(
+                f"{r['what']} {r['fwd_ms']:.2f} / {r['fwd_bwd_ms']:.2f} ms"
+                for r in line["results"])
+            + f"; launches {line['kernel_launches']}",
+        seconds=secs, results=line["results"],
+        launches=line["kernel_launches"])
+    out["block_breakdown"] = line["kernel_launches"]
+    return out
+
+
 def _profile_micro_step(phase, res):
     """One warm micro-step of a finished run's model at its longest train
     bucket, timed on the host clock and under torch.profiler (after the
@@ -3418,6 +3515,7 @@ def main():
     tp_small, tp = timed(12, phase12)
     proxy, proxy_step = timed(13, phase13)
     bench = timed(14, phase14)
+    tools = timed(15, phase15)
     paths = {"int8_eval": int8_eval, "quality_proxy": proxy, "serve": serve, "serve_int8": serve_int8, "train": train,
              "flagship_train": flagship, "converted_train": converted,
              "dp_train": dp["launches"], "tp_train": tp["launches"],
@@ -3425,6 +3523,8 @@ def main():
              "embed_bench": {k: bench["embed_bench"][k]
                              + bench["embed_bench_int8"][k]
                              for k in bench["embed_bench"]},
+             "profile": tools["profile"],
+             "block_breakdown": tools["block_breakdown"],
              "serve_fp32": serve_fp32,
              "train_fp32": train_fp32, "dp_fp32": dp_fp32,
              "tp_fp32": tp_small["float32"]}
@@ -3487,7 +3587,8 @@ def main():
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",
                      "converted_train", "dp_train", "tp_train", "tp_bf16",
-                     "int8_eval", "quality_proxy", "bench", "embed_bench") \
+                     "int8_eval", "quality_proxy", "bench", "embed_bench",
+                     "profile", "block_breakdown") \
             if k["name"] not in ("flash_rel_fwd", "flash_rel_bwd") else (
                 "serve_fp32", "train_fp32", "dp_fp32", "tp_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)

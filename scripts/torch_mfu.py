@@ -52,21 +52,6 @@ def _peak_gib(device):
     return torch.cuda.max_memory_allocated(device) / 2 ** 30
 
 
-def flagship(batch, asamps, tlen, overrides=()):
-    """mfu.py's experiment config: the flagship model, 5+5 unfrozen, one
-    bucket of ``asamps``."""
-    from speech_transcript_embeddings_torch import config as c
-    cfg = c.ExperimentConfig(
-        model=c.flagship_model_config(),
-        freeze=c.FreezeConfig(mode="partial", text_layers_to_unfreeze=5,
-                              audio_layers_to_unfreeze=5),
-        optimizer=c.OptimizerConfig(learning_rate=5e-5, warmup_steps=100),
-        data=c.DataConfig(batch_size=batch, max_text_length=tlen,
-                          audio_buckets=(asamps,), max_audio_samples=asamps),
-        train=c.TrainConfig(num_epochs=1, accumulation_steps=1))
-    return cfg.with_overrides(c.parse_overrides(list(overrides)))
-
-
 def conformer_forward(cfg, device, wav, nsamp, sampler):
     """The audio encoder's forward alone: → its record and its FLOPs."""
     import torch
@@ -164,7 +149,7 @@ def main(argv=None) -> list:
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     b, asamps = args.batch, args.seconds * 16000
-    cfg = flagship(b, asamps, args.text_len, args.overrides)
+    cfg = ub.flagship_config(b, asamps, args.text_len, args.overrides)
     if cuda:
         # fp32 products in full fp32, as the training loop runs them
         torch.backends.cuda.matmul.allow_tf32 = False

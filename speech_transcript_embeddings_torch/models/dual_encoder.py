@@ -227,6 +227,50 @@ def _truncated_normal(shape, std, generator, device):
 
 
 @torch.no_grad()
+def init_module(module: nn.Module, generator: torch.Generator, device="cpu",
+                shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
+                axis: Optional[ModelAxis] = None) -> nn.Module:
+    """Fill ``module``'s parameters in place from ``generator``, with
+    ``init_model``'s distributions, in its order (any module of the
+    model: a conformer block, a text encoder…). ``shapes``: each
+    parameter's whole shape under tensor parallel (``axis``), where this
+    rank keeps its shard of each drawn tensor."""
+    if shapes is None:
+        shapes = {k: tuple(p.shape) for k, p in module.named_parameters()}
+
+    def put(name, p, draw):
+        """Fill ``p`` with its shard of ``draw(whole shape)``."""
+        whole = draw(shapes[name])
+        p.copy_(whole if axis is None else mesh_lib.shard_tensor(
+            name, whole, axis.size, axis.index))
+
+    normal = lambda std: lambda shape: std(shape) * torch.randn(
+        shape, generator=generator, device=device)
+    lecun = lambda fan_in: lambda shape: _truncated_normal(
+        shape, shape[fan_in] ** -0.5, generator, device)
+    for name, mod in module.named_modules():
+        at = f"{name}." if name else ""
+        if isinstance(mod, Dense):
+            put(at + "weight", mod.weight, lecun(1))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, Embed):
+            put(at + "weight", mod.weight, normal(lambda s: s[1] ** -0.5))
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, RelPositionAttention):
+            put(at + "distance_embedding", mod.distance_embedding,
+                normal(lambda s: 0.02))
+        elif isinstance(mod, ConvModule):
+            put(at + "depthwise_kernel", mod.depthwise_kernel, lecun(-1))
+    for mod in module.modules():
+        if hasattr(mod, "masked_spec_embed"):
+            mod.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+    return module
+
+
+@torch.no_grad()
 def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu",
                *, train: bool = False, axis: Optional[ModelAxis] = None
                ) -> DualEncoderModel:
@@ -245,37 +289,7 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu",
     at a time."""
     with torch.device(device):
         model = DualEncoderModel(cfg, torch.float32 if train else None, axis)
-    shapes = model.full_shapes()
-
-    def put(name, p, draw):
-        """Fill ``p`` with its shard of ``draw(whole shape)``."""
-        whole = draw(shapes[name])
-        p.copy_(whole if axis is None else mesh_lib.shard_tensor(
-            name, whole, axis.size, axis.index))
-
-    normal = lambda std: lambda shape: std(shape) * torch.randn(
-        shape, generator=generator, device=device)
-    lecun = lambda fan_in: lambda shape: _truncated_normal(
-        shape, shape[fan_in] ** -0.5, generator, device)
-    for name, mod in model.named_modules():
-        at = f"{name}." if name else ""
-        if isinstance(mod, Dense):
-            put(at + "weight", mod.weight, lecun(1))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, Embed):
-            put(at + "weight", mod.weight, normal(lambda s: s[1] ** -0.5))
-        elif isinstance(mod, LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-        elif isinstance(mod, RelPositionAttention):
-            put(at + "distance_embedding", mod.distance_embedding,
-                normal(lambda s: 0.02))
-        elif isinstance(mod, ConvModule):
-            put(at + "depthwise_kernel", mod.depthwise_kernel, lecun(-1))
-    enc = model.audio_encoder
-    if hasattr(enc, "masked_spec_embed"):
-        enc.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+    init_module(model, generator, device, model.full_shapes(), axis)
     if train:
         return model
     return model.eval().requires_grad_(False)

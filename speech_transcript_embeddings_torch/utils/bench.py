@@ -62,6 +62,23 @@ def ceiling(flops: float, seconds: float, peak: float) -> float:
     return share
 
 
+def flagship_config(batch: int, asamps: int, tlen: int, overrides=()):
+    """The flagship experiment config of ``scripts/mfu.py``,
+    ``step_decompose.py`` and ``ab_remat.py``: the flagship model, 5+5
+    unfrozen, AdamW at 5e-5 with 100 warmup steps, one bucket of
+    ``asamps``; then the ``key=value`` overrides."""
+    from speech_transcript_embeddings_torch import config as c
+    cfg = c.ExperimentConfig(
+        model=c.flagship_model_config(),
+        freeze=c.FreezeConfig(mode="partial", text_layers_to_unfreeze=5,
+                              audio_layers_to_unfreeze=5),
+        optimizer=c.OptimizerConfig(learning_rate=5e-5, warmup_steps=100),
+        data=c.DataConfig(batch_size=batch, max_text_length=tlen,
+                          audio_buckets=(asamps,), max_audio_samples=asamps),
+        train=c.TrainConfig(num_epochs=1, accumulation_steps=1))
+    return cfg.with_overrides(c.parse_overrides(list(overrides)))
+
+
 # ---- bench.py's clip-length mix ---------------------------------------------
 
 def sample_cv_lengths(n: int, rng: np.random.Generator) -> np.ndarray:
