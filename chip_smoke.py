@@ -51,10 +51,22 @@ card's bf16 peak. The step-diagnosis tools (phase 15):
 ``scripts/torch_profile_b16.py --steps 3`` (the retrieval step traced and
 attributed: device time by kernel family, the idle gaps by the host op
 that launched the kernel ending each) and a short
-``scripts/torch_block_breakdown.py``. Phases 4, 5, 7, 8, 9, 10, 11, 12,
-13, 14 and 15 check that their path went through its kernels (and, in
-int8, its int8 products), counted from zero; the last line before the
-result lists each phase's seconds. Each phase prints a line per check; any failure raises and exits non-zero. Detailed
+``scripts/torch_block_breakdown.py``. The ablation tools (phase 16):
+``scripts/torch_depthwise_sweep.py``, ``scripts/torch_conv_ablate.py``,
+``scripts/torch_flash_ablate.py`` (the flash kernels rebuilt with the
+relative bias, then its gradient, switched off, each held against the
+twins with E = 0) and ``scripts/torch_flash_tile_sweep.py`` (the
+backward's tiles) at full width. Phases 2, 3 and 6 also call each kernel's
+raw entry point once with every output and scratch buffer a view inside a
+buffer of a sentinel pattern, 4 KiB of guard on each side, and fail on a
+changed guard byte or input. Phases 11, 12, 14 and 15 run
+``preset=retrieval`` at full width with each encoder cut to six blocks
+(``CUT_DEPTH``: one frozen under the five unfrozen). Phases 14-16 only
+run processes and read their lines: a thread runs them beside phases
+11-13, and the smoke waits for it before it exits. Phases 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15
+and 16 check that their path went through its kernels (and, in int8, its
+int8 products), counted from zero; the last line before the result lists
+each phase's seconds. Each phase prints a line per check; any failure raises and exits non-zero. Detailed
 numbers go to ``chiprun_out/chip_smoke.json``. The last line is the JSON
 result. Nothing of JAX or of the JAX package is imported.
 """
@@ -352,6 +364,7 @@ def phase2():
             cufft_composite_err=composite_err, **t)
         del wav, lens, raw, ref_raw
         torch.cuda.empty_cache()
+    _guard_log_mel(cfg, front, g)
     return worst, times
 
 
@@ -519,6 +532,7 @@ def phase3():
                f"of bound {b_ms / tm['ms']:.1%}", bh=bh, t_pad=t, **tm)
         del q, k, v, e, mask, q4, k4, v4
         torch.cuda.empty_cache()
+    _guard_flash_fwd(g)
     return worst, times
 
 
@@ -580,6 +594,216 @@ def _max_rel_err(a, b):
     """max|a − b| / max|b| (fp32)."""
     a, b = a.float(), b.float()
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+# ---- guard bands around every buffer a kernel writes (phases 2, 3, 6) -------
+
+GUARD_BYTES = 4096
+
+
+def _pattern(n, device):
+    """``n`` bytes of a pattern no kernel writes by chance: (151·i + 89)
+    mod 256."""
+    import torch
+    return ((torch.arange(n, device=device) * 151 + 89) % 256).to(torch.uint8)
+
+
+class Guarded:
+    """Output and scratch tensors of one raw kernel call, each a view
+    inside a buffer of the sentinel pattern with ``GUARD_BYTES`` of guard
+    before and after it; the inputs' bytes snapped before the call."""
+
+    def __init__(self, kernel, device):
+        self.kernel, self.device = kernel, device
+        self.bufs, self.inputs = [], []
+
+    def empty(self, name, shape, dtype):
+        import torch
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        raw = _pattern(2 * GUARD_BYTES + n, self.device)
+        self.bufs.append((name, raw, n))
+        return raw[GUARD_BYTES:GUARD_BYTES + n].view(dtype).view(shape)
+
+    def watch(self, **inputs):
+        """Snap the inputs, to be found unchanged after the call."""
+        self.inputs += [(name, t, t.clone()) for name, t in inputs.items()]
+
+    def check(self, what):
+        """Fail on a changed guard byte (naming the kernel, the buffer and
+        the byte's offset from the view) or a changed input."""
+        import torch
+        torch.cuda.synchronize()
+        for name, raw, n in self.bufs:
+            bad = raw != _pattern(raw.numel(), self.device)
+            bad[GUARD_BYTES:GUARD_BYTES + n] = False
+            if bad.any():
+                off = int(bad.nonzero()[0]) - GUARD_BYTES
+                raise AssertionError(
+                    f"{self.kernel} at {what} wrote outside {name}: the "
+                    f"first changed guard byte is at offset {off} from its "
+                    f"start (it holds {n} bytes; {int(bad.sum())} guard "
+                    "bytes changed)")
+        for name, t, before in self.inputs:
+            if not torch.equal(t, before):
+                raise AssertionError(f"{self.kernel} at {what} changed its "
+                                     f"input {name}")
+
+
+def _guard_log_mel(cfg, front, g):
+    """Both raw log-mel entry points once at every ``MEL_SHAPES`` shape
+    and every bucket (ragged clips, the 30 s bucket included): every output
+    in guard bands, every input unchanged, the outputs equal to the
+    wrappers' (the kernels are deterministic)."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import _build
+    from speech_transcript_embeddings_torch.ops import frontend as fe
+    from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    lib = _build.library()
+    tab = fk._device_tables(cfg, torch.device("cuda"))
+    shapes = list(MEL_SHAPES) + [(4, n) for n in BUCKETS]
+    for b, n in shapes:
+        wav, lens = mel_inputs(g, b, n)
+        what = f"B={b} × {n}"
+        frames = fe.frames_for_samples(cfg, n)
+        want = front.raw_log_mel(wav)
+        gd = Guarded("log_mel_fft_kernel (ste_log_mel)", "cuda")
+        out = gd.empty("out", (b, frames, cfg.num_mel_bins), torch.float32)
+        gd.watch(waveform=wav, **tab)
+        device, stream = _build.launch_args(wav)
+        _build.check(lib.ste_log_mel(
+            wav.data_ptr(), b, n, *(tab[k].data_ptr() for k in (
+                "window", "window_step", "twiddles", "response",
+                "mel_ranges", "mel_weights")), cfg.num_mel_bins,
+            cfg.preemphasis / fk.V_SCALE, float(cfg.mel_floor),
+            out.data_ptr(), frames, device, stream), "ste_log_mel")
+        gd.check(what)
+        if not torch.equal(out, want):
+            raise AssertionError(f"ste_log_mel at {what}: guarded output "
+                                 "differs from the wrapper's")
+        feats_want, mask_want = front.normalize_and_stack(want, lens)
+        t2 = frames // cfg.stride
+        gd2 = Guarded("log_mel_normalize_kernel (ste_log_mel_normalize)",
+                      "cuda")
+        feats = gd2.empty("features", (b, t2, cfg.num_mel_bins * cfg.stride),
+                          torch.float32)
+        mask = gd2.empty("mask", (b, t2), torch.int32)
+        gd2.watch(logmel=want, num_samples=lens)
+        _build.check(lib.ste_log_mel_normalize(
+            want.data_ptr(), lens.data_ptr(), b, frames, cfg.num_mel_bins,
+            cfg.stride, cfg.frame_length, cfg.hop_length,
+            int(cfg.per_bin_normalize), feats.data_ptr(), mask.data_ptr(),
+            device, stream), "ste_log_mel_normalize")
+        gd2.check(what)
+        if not (torch.equal(feats, feats_want) and torch.equal(mask,
+                                                               mask_want)):
+            raise AssertionError(f"ste_log_mel_normalize at {what}: guarded "
+                                 "output differs from the wrapper's")
+        del wav, lens, want, out, feats_want, mask_want, feats, mask
+    log(2, f"guard bands ({GUARD_BYTES} bytes a side, pattern 151·i + 89): "
+           f"ste_log_mel and ste_log_mel_normalize at {len(shapes)} shapes "
+           f"(every MEL_SHAPES shape, every bucket at B=4, ragged) wrote "
+           f"inside their outputs only, left their inputs unchanged and gave "
+           f"the wrappers' bits", guard_shapes=[f"{b}x{n}" for b, n in shapes])
+
+
+# (B·h, t) of the flash guard checks: the main paths' shapes, a 10 s clip
+# (t = 499, not a multiple of 64) and the 30 s bucket
+GUARD_FLASH = ((256, 256), (256, 499), (256, 512), (256, 768), (64, 1536))
+
+
+def _guard_flash_fwd(g, nh=16, hd=64, left=64):
+    """The wgmma forward's raw entry point once a ``GUARD_FLASH`` shape,
+    ragged clips (the first full, the others at 60%) and one with a clip of
+    no valid frame: out and lse in guard bands, the inputs unchanged, the
+    outputs equal to ``_fwd_launch``'s."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import _build
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    lib = _build.library()
+    cases = [(bh, t, False) for bh, t in GUARD_FLASH] + [(32, 499, True)]
+    for bh, t, zero in cases:
+        q, k, v, _, e, mask = _flash_inputs(g, bh, t, hd, torch.bfloat16,
+                                            0.02, nh=nh, zero=zero)
+        want = fa._fwd_launch("mma", q, k, v, e, mask, nh, left)
+        what = f"B·h {bh} t {t}" + (" (clips of no frame)" if zero else "")
+        gd = Guarded("flash_rel_fwd_wgmma_kernel (ste_flash_rel_fwd_wgmma)",
+                     "cuda")
+        out = gd.empty("out", (bh, t, hd), torch.bfloat16)
+        lse = gd.empty("lse", (bh, t, 1), torch.float32)
+        gd.watch(q=q, k=k, v=v, e=e, mask=mask)
+        device, stream = _build.launch_args(q)
+        _build.check(lib.ste_flash_rel_fwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            mask.data_ptr(), fa._MASK_KINDS[mask.dtype], out.data_ptr(),
+            lse.data_ptr(), bh, t, fa._t_pad(t), hd, e.shape[0], left, nh,
+            fa._scale(q.dtype, hd), device, stream),
+            "ste_flash_rel_fwd_wgmma")
+        gd.check(what)
+        if not (torch.equal(out, want[0]) and torch.equal(lse, want[1])):
+            raise AssertionError(f"ste_flash_rel_fwd_wgmma at {what}: "
+                                 "guarded output differs from _fwd_launch's")
+        del q, k, v, e, mask, want, out, lse
+    log(3, f"guard bands ({GUARD_BYTES} bytes a side): "
+           f"ste_flash_rel_fwd_wgmma at {len(cases)} shapes (B·h, t) "
+           f"{[c[:2] for c in cases]}, ragged, t = 499 and the 30 s bucket, "
+           "a clip of no frame: out and lse written inside only, inputs "
+           "unchanged, _fwd_launch's bits",
+        guard_shapes=[list(c) for c in cases])
+
+
+def _guard_flash_bwd(g, nh=16, hd=64, left=64):
+    """The wgmma backward's raw entry point once a ``GUARD_FLASH`` shape
+    and a case of clips with no valid frame: dq, dk, dv and the scratch
+    kernel A writes for kernel B (q_s, qE, dd) and the dE partials in guard
+    bands, the inputs unchanged, the gradients equal to ``_bwd_launch``'s."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import _build
+    from speech_transcript_embeddings_torch.ops import flash_attention as fa
+    lib = _build.library()
+    cases = [(bh, t, False) for bh, t in GUARD_FLASH] + [(32, 499, True)]
+    for bh, t, zero in cases:
+        q, k, v, dout, e, mask = _flash_inputs(g, bh, t, hd, torch.bfloat16,
+                                               0.3, nh=nh, zero=zero)
+        out, lse = fa._fwd_launch("mma", q, k, v, e, mask, nh, left)
+        want = fa._bwd_launch("mma", q, k, v, e, mask, out, lse, dout, nh,
+                              left)
+        what = f"B·h {bh} t {t}" + (" (clips of no frame)" if zero else "")
+        num_pos = e.shape[0]
+        lengths = fa._lengths(mask)
+        gd = Guarded("flash_rel_bwd_dq/dkv_wgmma_kernel "
+                     "(ste_flash_rel_bwd_wgmma)", "cuda")
+        dq, dk, dv, q_s = (gd.empty(name, (bh, t, hd), torch.bfloat16)
+                           for name in ("dq", "dk", "dv", "q_s"))
+        qe = gd.empty("qE", (bh, t, fa._np_pad(num_pos)), torch.bfloat16)
+        dd = gd.empty("dd", (bh, t), torch.float32)
+        de_part = gd.empty("dE partials", (bh * -(-t // 64), num_pos, hd),
+                           torch.float32)
+        gd.watch(q=q, k=k, v=v, e=e, lengths=lengths, out=out, dout=dout,
+                 lse=lse)
+        device, stream = _build.launch_args(q)
+        _build.check(lib.ste_flash_rel_bwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), e.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q_s.data_ptr(), qe.data_ptr(), dd.data_ptr(), de_part.data_ptr(),
+            bh, t, fa._t_pad(t), hd, num_pos, left, nh,
+            fa._scale(q.dtype, hd), 1.0 / math.sqrt(hd), device, stream),
+            "ste_flash_rel_bwd_wgmma")
+        gd.check(what)
+        got = (dq, dk, dv, torch.sum(de_part, dim=0).to(e.dtype))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"ste_flash_rel_bwd_wgmma at {what}: "
+                                 "guarded gradients differ from "
+                                 "_bwd_launch's")
+        del q, k, v, dout, e, mask, out, lse, want, got, dq, dk, dv, q_s, qe
+        del dd, de_part
+    torch.cuda.empty_cache()
+    log(6, f"guard bands ({GUARD_BYTES} bytes a side): "
+           f"ste_flash_rel_bwd_wgmma at {len(cases)} shapes (B·h, t) "
+           f"{[c[:2] for c in cases]}, ragged, t = 499 and the 30 s bucket, "
+           "clips of no frame: dq, dk, dv, q_s, qE, dd and the dE partials "
+           "written inside only, inputs unchanged, _bwd_launch's bits",
+        guard_shapes=[list(c) for c in cases])
 
 
 def phase6():
@@ -718,6 +942,7 @@ def phase6():
             bh=bh, t_pad=t, **tm)
         del q, k, v, dout, e, mask, out, lse, q4, k4, v4, o4, d4
         torch.cuda.empty_cache()
+    _guard_flash_bwd(g)
     return worst, worst_abs, times
 
 
@@ -2175,6 +2400,13 @@ DP_CLIPS = 160
 DP_FLAG_AT = 2
 DP_SMALL_BATCH = 8       # (a): the global batch, 4 rows a rank
 DP_STEPS = 4             # (c): micro-steps, at accumulation 2
+# the depth of preset=retrieval in phases 11, 12, 14 and 15: the full
+# width, each encoder's frozen bottom cut to one block under its five
+# unfrozen ones (phases 8-10 run the full 24 + 12 blocks); these paths'
+# gloo collectives and separate processes are what holds the smoke's time
+# on a slow host
+CUT_DEPTH = ("model.audio.num_layers=6", "model.audio.scan_bottom=1",
+             "model.text.num_layers=6", "model.text.scan_bottom=1")
 DP_DROPOUT_OFF = ("model.text.hidden_dropout=0.0",
                   "model.text.attention_dropout=0.0",
                   "model.audio.conv_dropout=0.0",
@@ -2190,7 +2422,7 @@ def _dp_argv(out):
             "train.num_epochs=1", "train.save_every=0",
             "optimizer.warmup_steps=0",
             f"data.num_synthetic_samples={DP_CLIPS}",
-            f"train.output_dir={out}", *DP_DROPOUT_OFF]
+            f"train.output_dir={out}", *DP_DROPOUT_OFF, *CUT_DEPTH]
 
 
 def _torchrun(nproc, part, out, timeout, phase=11):
@@ -2236,8 +2468,8 @@ def phase11():
     (phase 7's, at a global batch of 8) as 2 ranks over gloo: one
     accumulation-2 optimizer step held against the same model in one
     process by phase 7's rule, and the two ranks' weights bit-identical.
-    (b) ``preset=retrieval`` at full width through the port's CLI under
-    ``torchrun --nproc_per_node=1``, NCCL at world size 1: preempted by an
+    (b) ``preset=retrieval`` at full width (``CUT_DEPTH``) through the
+    port's CLI under ``torchrun --nproc_per_node=1``, NCCL at world size 1: preempted by an
     agreed flag and resumed, with phase 9's checks and launch counts, then
     one micro-step profiled without a group and under it (device time,
     NCCL's), the same model, batch and configuration. (c) the
@@ -2544,19 +2776,21 @@ def _dp_worker_c():
 # phase 12: tensor parallel, the mesh's model axis of 2, as 2 gloo ranks on
 # the one card (NCCL refuses two ranks on one device): (a) the small model
 # of phase 7 in fp32 and in bf16, dropout on, the clip firing; (b)
-# preset=retrieval through the CLI on phase 9's CV lengths at one bucket;
+# preset=retrieval through the CLI on phase 9's CV lengths at its shortest
+# bucket;
 # (c) the CLI under NCCL with a card per rank, where there are two cards
 TP_CLIP = 0.1            # (a): max_grad_norm, below the small model's norms
 TP_CLIPS = 32            # (b): 2 micro-steps of 16, one update
 TP_UPDATES = 1           # (b): the CLI's schedule length for TP_CLIPS
 TP_NORM_TOL = 4e-3       # (b): grad norm, relative, against model=1
 TP_UPDATE_COS = 0.9      # (b): the update's cosine against model=1
-TP_BUCKET = 164080
+TP_BUCKET = 41200        # (b): the shortest CV bucket (its gloo copies scale
+                         # with the clip)
 
 
 def _tp_argv(out):
     """(b): ``preset=retrieval`` at B = 16 on CV lengths, every clip at
-    the 164,080 bucket, accumulation 2, dropout and SpecAugment off, no
+    the ``TP_BUCKET`` bucket, accumulation 2, dropout and SpecAugment off, no
     warmup."""
     return ["preset=retrieval", "data.batch_size=16",
             "data.synthetic_length_profile=cv",
@@ -2565,7 +2799,7 @@ def _tp_argv(out):
             "train.accumulation_steps=2",
             "train.save_every=0", "optimizer.warmup_steps=0",
             f"data.num_synthetic_samples={TP_CLIPS}",
-            f"train.output_dir={out}", *DP_DROPOUT_OFF]
+            f"train.output_dir={out}", *DP_DROPOUT_OFF, *CUT_DEPTH]
 
 
 def _tp_small_cfg(dtype):
@@ -2616,8 +2850,8 @@ def phase12():
     7's rule and loss and grad norm within 1e-6, bf16 (the tensor-core
     flash kernels at the local heads) by phase 11's 2e-2 rule; the
     replicated leaves bit-identical across the ranks. (b)
-    ``preset=retrieval`` through the CLI at ``mesh.num_model=2`` as 2 gloo
-    ranks: finite losses, the first against the same batch at model=1
+    ``preset=retrieval`` (``CUT_DEPTH``) through the CLI at
+    ``mesh.num_model=2`` as 2 gloo ranks: finite losses, the first against the same batch at model=1
     (2e-2), the window's mean grad norm (``TP_NORM_TOL``) and the update's
     cosine (``TP_UPDATE_COS``) against model=1's, the shard shapes, K1-K4 on
     each rank, the gathered shards equal to ``final_model``, which
@@ -3253,17 +3487,18 @@ def _phase13_proxy():
 
 # the benchmark tools of phase 14, each run from the checkout in a process
 # of its own: → the kernels its JSON line must show launched
-BENCH_RUNS = {"bench": (["bench_torch.py"], ("K1", "K2", "K3", "K4")),
-              "embed_bench": (["scripts/torch_infer_bench.py"],
+BENCH_RUNS = {"bench": (["bench_torch.py", *CUT_DEPTH],
+                        ("K1", "K2", "K3", "K4")),
+              "embed_bench": (["scripts/torch_infer_bench.py", *CUT_DEPTH],
                               ("K1", "K2", "K3")),
-              "embed_bench_int8": (["scripts/torch_infer_bench.py", "--int8"],
-                                   ("K1", "K2", "K3"))}
+              "embed_bench_int8": (["scripts/torch_infer_bench.py", "--int8",
+                                    *CUT_DEPTH], ("K1", "K2", "K3"))}
 
 
 def phase14():
     """The benchmark tools on the card: ``bench_torch.py`` with its default
     config (the length mix and the fixed 10 s step of ``preset=retrieval``
-    at B = 16) and ``scripts/torch_infer_bench.py`` in bf16 and int8 (B =
+    at B = 16, at ``CUT_DEPTH``) and ``scripts/torch_infer_bench.py`` in bf16 and int8 (B =
     64 × 10 s), each a process started from the checkout. Each prints its
     JSON line (printed here too) only when every reading held the ceiling
     (the tool raises above the card's bf16 peak) and its kernels launched
@@ -3339,8 +3574,8 @@ def _tool_line(cmd, timeout=300):
 
 def phase15():
     """The step-diagnosis tools on the card: ``scripts/torch_profile_b16.py
-    --steps 3`` (the ``retrieval`` step at fixed 10 s, B = 16, traced and
-    attributed) and ``scripts/torch_block_breakdown.py`` at B = 8, each a
+    --steps 3`` (the ``retrieval`` step at fixed 10 s, B = 16, at
+    ``CUT_DEPTH``, traced and attributed) and ``scripts/torch_block_breakdown.py`` at B = 8, each a
     process started from the checkout. The attribution's families sum to
     its ``device_ms_per_step`` within 1%; K1-K4 each have device time; busy
     plus idle equals the device span within 2% a step; at least 90% of
@@ -3355,7 +3590,8 @@ def phase15():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         line, secs = _tool_line(["torch_profile_b16.py", "--steps",
-                                 str(PROFILE_STEPS), "--out", tmp])
+                                 str(PROFILE_STEPS), "--out", tmp,
+                                 *CUT_DEPTH])
         with open(line["written"]) as f:
             prof = json.load(f)
     fams = {r["family"]: r["ms_per_step"] for r in prof["by_family"]}
@@ -3406,6 +3642,117 @@ def phase15():
         seconds=secs, results=line["results"],
         launches=line["kernel_launches"])
     out["block_breakdown"] = line["kernel_launches"]
+    return out
+
+
+# the ablation tools of phase 16, each run from the checkout at full width
+ABLATION_ITERS = 5
+SWEEP_SPECS = ("", "kStagesB=3", "kStagesA=2")   # the source and two specs
+
+
+def _finite_positive(*values):
+    return all(isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+               for x in values)
+
+
+def phase16():
+    """The ablation tools on the card, each a process started from the
+    checkout at full width with ``--iters`` ``ABLATION_ITERS``:
+    ``scripts/torch_depthwise_sweep.py`` (the two depthwise formulations:
+    their parity error over max|out| within 2e-2, phase 6's bf16
+    tolerance), ``scripts/torch_conv_ablate.py`` (the four conv-module
+    variants, device time by kernel family), ``scripts/torch_flash_ablate.py``
+    (its three kernel variants built with the bias switches, each held
+    against the twins as the tool does: full with E; out, dk and dv with
+    E = 0 with the bias off; out and every gradient with E = 0 and dE = 0
+    with its gradient off too) and ``scripts/torch_flash_tile_sweep.py`` at
+    ``SWEEP_SPECS`` (the source as it stands must hold the twin). Every
+    time is finite and positive; K3 and K4 launched in both flash tools,
+    counted from zero in their processes. The flash tools' kernel variants
+    are built first, every nvcc at once, while the two conv tools run (a
+    variant library is named by its source's hash, so the tools find them
+    built). → each flash tool's launches."""
+    from speech_transcript_embeddings_torch.ops import _build
+    iters = ["--iters", str(ABLATION_ITERS)]
+    variants, ablate = _script("torch_flash_bwd_times"), _script(
+        "torch_flash_ablate")
+    started = variants.start_variants(
+        sorted({f for f, _ in ablate.VARIANTS.values()}), _build,
+        ablate.FWD_SOURCE, ablate.HD) + variants.start_variants(
+        sorted({b for _, b in ablate.VARIANTS.values()} | set(SWEEP_SPECS)),
+        _build, ablate.BWD_SOURCE, ablate.HD)
+    line, secs = _tool_line(["torch_depthwise_sweep.py", *iters])
+    share = line["parity_max_err"] / line["max_abs_out"]
+    times = [r[k] for r in line["results"]
+             for k in ("fwd_ms", "fwd_bwd_ms", "fwd_device_ms",
+                       "fwd_bwd_device_ms")]
+    if not share <= 2e-2 or not _finite_positive(*times) or \
+            len(line["results"]) != 2:
+        raise AssertionError(f"depthwise sweep: parity {share:.2e} of "
+                             f"max|out|, results {line['results']}")
+    log(16, f"scripts/torch_depthwise_sweep.py in {secs:.1f} s: parity max "
+            f"err {line['parity_max_err']:.4f} ({share:.1e} of max|out|, tol "
+            "2e-2); " + "; ".join(
+                f"{r['what']} fwd {r['fwd_ms']:.3f} ms (device "
+                f"{r['fwd_device_ms']:.3f}), fwd+bwd {r['fwd_bwd_ms']:.3f} "
+                f"({r['fwd_bwd_device_ms']:.3f})" for r in line["results"]),
+        seconds=secs, result=line)
+    line, secs = _tool_line(["torch_conv_ablate.py", *iters])
+    rs = line["results"]
+    if [r["what"] for r in rs] != ["full", "no_depthwise", "no_lns",
+                                   "matmuls_only"] or not _finite_positive(
+            *(r[k] for r in rs for k in ("ms", "device_ms"))) or not all(
+            r["device_ms_by_family"] for r in rs):
+        raise AssertionError(f"conv ablation: {rs}")
+    log(16, f"scripts/torch_conv_ablate.py in {secs:.1f} s: " + "; ".join(
+        f"{r['what']} {r['ms']:.3f} ms (device {r['device_ms']:.3f}: "
+        + ", ".join(f"{f} {ms:.3f}" for f, ms in
+                    r["device_ms_by_family"].items()) + ")" for r in rs),
+        seconds=secs, result=line)
+    from speech_transcript_embeddings_torch.utils import bench as ub
+    t0 = time.perf_counter()
+    variants.finish_variants(started)
+    log(16, f"{len(started)} kernel variants built (waited "
+            f"{time.perf_counter() - t0:.1f} s after the conv tools)")
+    out = {}
+    line, secs = _tool_line(["torch_flash_ablate.py", *iters])
+    rs = line["results"]
+    if [r["what"] for r in rs] != ["full", "no_bias_fwdside",
+                                   "no_bias_no_dqe"] or not _finite_positive(
+            *(r[k] for r in rs for k in ("fwd_bwd_ms", "fwd_bwd_device_ms",
+                                         "flash_kernels_device_ms"))) or \
+            not all(x <= 2e-2 for r in rs for x in r["max_rel_err"].values()):
+        raise AssertionError(f"flash ablation: {rs}")
+    ub.require_launches(line["kernel_launches"], ("K3", "K4"))
+    log(16, f"scripts/torch_flash_ablate.py in {secs:.1f} s (B·h 512, t "
+            f"499): " + "; ".join(
+                f"{r['what']} fwd+bwd {r['fwd_bwd_ms']:.3f} ms (device "
+                f"{r['fwd_bwd_device_ms']:.3f}, K3 + K4 "
+                f"{r['flash_kernels_device_ms']:.3f}), against the twins "
+                + ", ".join(f"{n} {x:.1e}" for n, x in
+                            r["max_rel_err"].items()) for r in rs)
+            + f"; bound {rs[0]['bound_ms']:.4f} ms; launches "
+              f"{line['kernel_launches']}",
+        seconds=secs, result=line)
+    out["flash_ablate"] = line["kernel_launches"]
+    specs = [a for spec in SWEEP_SPECS for a in ("--spec", spec)]
+    line, secs = _tool_line(["torch_flash_tile_sweep.py", *iters, *specs])
+    rs = {r["spec"]: r for r in line["results"]}
+    src = rs[""]
+    if "error" in src or not _finite_positive(
+            src["fwd_bwd_ms"], src["fwd_bwd_device_ms"]) or not all(
+            "error" in r or _finite_positive(r["fwd_bwd_ms"],
+                                             r["fwd_bwd_device_ms"])
+            for r in rs.values()):
+        raise AssertionError(f"tile sweep: {line['results']}")
+    ub.require_launches(line["kernel_launches"], ("K3", "K4"))
+    log(16, f"scripts/torch_flash_tile_sweep.py in {secs:.1f} s: " + "; ".join(
+        f"{spec or 'source'} " + (f"FAIL {r['error'][:80]}" if "error" in r
+                                  else f"{r['fwd_bwd_ms']:.3f} ms (device "
+                                       f"{r['fwd_bwd_device_ms']:.3f})")
+        for spec, r in rs.items()) + f"; launches {line['kernel_launches']}",
+        seconds=secs, result=line)
+    out["tile_sweep"] = line["kernel_launches"]
     return out
 
 
@@ -3497,6 +3844,28 @@ def timed(n, phase):
         PHASE_SECONDS[n] = time.perf_counter() - t0
 
 
+def _beside(fn):
+    """Start ``fn()`` in a thread: → ``join``, which waits for it and
+    returns its result or raises its exception."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as exc:
+            box["err"] = exc
+
+    thread = threading.Thread(target=run, name="phases-14-16")
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+    return join
+
+
 def main():
     import torch
     start = time.perf_counter()
@@ -3511,11 +3880,23 @@ def main():
     train, warm_clips_per_s, int8_eval = timed(8, phase8)
     flagship, flagship_step, _ = timed(9, phase9)
     converted = timed(10, phase10)
-    dp_fp32, dp, dp2 = timed(11, phase11)
-    tp_small, tp = timed(12, phase12)
-    proxy, proxy_step = timed(13, phase13)
-    bench = timed(14, phase14)
-    tools = timed(15, phase15)
+    # phases 14-16 only run the tools' processes and read their JSON
+    # lines: they run beside phases 11-13, whose time goes mostly to the
+    # host (gloo copies, process starts, checkpoint writes)
+    join = _beside(lambda: (timed(14, phase14), timed(15, phase15),
+                            timed(16, phase16)))
+    try:
+        dp_fp32, dp, dp2 = timed(11, phase11)
+        tp_small, tp = timed(12, phase12)
+        proxy, proxy_step = timed(13, phase13)
+    except BaseException:
+        try:        # its processes end before this one does
+            join()
+        except BaseException as exc:
+            print(f"phases 14-16 beside the failure: {exc!r}",
+                  file=sys.stderr, flush=True)
+        raise
+    bench, tools, ablation = join()
     paths = {"int8_eval": int8_eval, "quality_proxy": proxy, "serve": serve, "serve_int8": serve_int8, "train": train,
              "flagship_train": flagship, "converted_train": converted,
              "dp_train": dp["launches"], "tp_train": tp["launches"],
@@ -3525,6 +3906,8 @@ def main():
                              for k in bench["embed_bench"]},
              "profile": tools["profile"],
              "block_breakdown": tools["block_breakdown"],
+             "flash_ablate": ablation["flash_ablate"],
+             "tile_sweep": ablation["tile_sweep"],
              "serve_fp32": serve_fp32,
              "train_fp32": train_fp32, "dp_fp32": dp_fp32,
              "tp_fp32": tp_small["float32"]}
@@ -3588,7 +3971,8 @@ def main():
         main_path = ("serve", "serve_int8", "train", "flagship_train",
                      "converted_train", "dp_train", "tp_train", "tp_bf16",
                      "int8_eval", "quality_proxy", "bench", "embed_bench",
-                     "profile", "block_breakdown") \
+                     "profile", "block_breakdown", "flash_ablate",
+                     "tile_sweep") \
             if k["name"] not in ("flash_rel_fwd", "flash_rel_bwd") else (
                 "serve_fp32", "train_fp32", "dp_fp32", "tp_fp32")
         k["launches"] = sum(by_path[k["name"]][p] for p in main_path)
@@ -3621,8 +4005,9 @@ def main():
                    **RECORD},
                   f, indent=1)
     print("phase seconds: " + ", ".join(
-        f"{n}: {t:.1f}" for n, t in PHASE_SECONDS.items())
-        + f"; total {time.perf_counter() - start:.1f}", flush=True)
+        f"{n}: {t:.1f}" for n, t in sorted(PHASE_SECONDS.items()))
+        + f" (14-16 beside 11-13); total {time.perf_counter() - start:.1f}",
+        flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

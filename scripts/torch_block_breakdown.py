@@ -39,7 +39,6 @@ import dataclasses
 import json
 import os
 import sys
-import time
 
 import numpy as np
 
@@ -94,19 +93,6 @@ def loss_and_grads(name: str, mod, x, mask, w):
     params = list(mod.parameters())
     grads = torch.autograd.grad(loss, [*params, x])
     return loss.detach(), grads[:-1], grads[-1]
-
-
-def timeit(fn, sync, n=TIMED, warmup=WARM) -> float:
-    """block_breakdown.py's ``timeit``: the mean seconds of ``n`` calls
-    after ``warmup``, the window ending in a sync."""
-    for _ in range(warmup):
-        fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    sync()
-    return (time.perf_counter() - t0) / n
 
 
 def main(argv=None) -> dict:
@@ -164,8 +150,9 @@ def main(argv=None) -> dict:
             def fwd_bwd():
                 return loss_and_grads(name, mod, x, mask, w)
 
-            rec = {"what": name, "fwd_ms": timeit(fwd, sync) * 1e3,
-                   "fwd_bwd_ms": timeit(fwd_bwd, sync) * 1e3,
+            rec = {"what": name,
+                   "fwd_ms": ub.timeit(fwd, sync, TIMED, WARM) * 1e3,
+                   "fwd_bwd_ms": ub.timeit(fwd_bwd, sync, TIMED, WARM) * 1e3,
                    "fwd_busy_ms": ub.device_busy_ms(fwd) if cuda else None,
                    "fwd_bwd_busy_ms": (ub.device_busy_ms(fwd_bwd) if cuda
                                        else None)}

@@ -38,6 +38,7 @@ of its own directory first, then those of ``csrc/``. Give them in turns
 
 import argparse
 import ctypes
+import hashlib
 import importlib.util
 import json
 import os
@@ -45,21 +46,52 @@ import re
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = "flash_rel_bwd_sm90.cu"
 ENTRY = "ste_flash_rel_bwd_wgmma"
 
 
-def build_variants(specs, _build, source_name=SOURCE):
-    """One shared library per SPEC, from ``csrc/<source_name>``; nvcc
-    processes run at once."""
+def variant_source(text, spec, source_name=SOURCE):
+    """``text`` with the ``constexpr int NAME = VALUE;`` definitions of
+    SPEC (comma-separated NAME=VALUE pairs) replaced; each NAME must have
+    exactly one definition."""
+    for item in filter(None, spec.split(",")):
+        name, value = item.split("=")
+        text, hits = re.subn(rf"(constexpr int {name} = )[^;]+;",
+                             rf"\g<1>{value};", text)
+        if hits != 1:
+            raise ValueError(f"{name}: {hits} definitions in {source_name}")
+    return text
+
+
+def only_head_dim(text, hd, source_name=SOURCE):
+    """``text`` whose entry point instantiates and launches the kernels
+    for head dim ``hd`` alone (any other returns cudaErrorInvalidValue):
+    one instantiation compiles in a fraction of the eight's time."""
+    text, hits = re.subn(
+        r"switch \(hd\) \{.*?\n  \}",
+        f"if (hd != {hd}) return static_cast<int>(cudaErrorInvalidValue);\n"
+        f"  STE_LAUNCH({hd});", text, flags=re.S)
+    if hits != 1:
+        raise ValueError(f"{hits} head-dim switches in {source_name}")
+    return text
+
+
+def start_variants(specs, _build, source_name=SOURCE, hd=None):
+    """Start one nvcc a SPEC (all at once), each building a shared library
+    from ``csrc/<source_name>`` into ``_build/variants/``, named by a hash
+    of its source text, flags and headers: a library already built is not built
+    again, and two builds of one text (in two processes) write the same
+    file. With ``hd``, that head dim's kernels alone (``only_head_dim``).
+    → [(spec, library path, process or None)] for ``finish_variants``."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     stem = source_name.split(".")[0]
     source = (_build.CSRC / source_name).read_text()
-    paths, procs = [], []
-    for i, spec in enumerate(specs):
+    started = []
+    for spec in specs:
         includes = ["-I", str(_build.CSRC)]
         if spec.startswith("@"):
             with open(spec[1:]) as f:
@@ -68,25 +100,53 @@ def build_variants(specs, _build, source_name=SOURCE):
             includes = ["-I", os.path.dirname(os.path.abspath(spec[1:]))] + \
                 includes
         else:
-            text = source
-            for item in filter(None, spec.split(",")):
-                name, value = item.split("=")
-                text, hits = re.subn(rf"(constexpr int {name} = )[^;]+;",
-                                     rf"\g<1>{value};", text)
-                if hits != 1:
-                    raise ValueError(f"{name}: {hits} definitions in "
-                                     f"{source_name}")
-        src = out_dir / f"{stem}_{i}.cu"
+            text = variant_source(source, spec, source_name)
+        if hd is not None:
+            text = only_head_dim(text, hd, source_name)
+        # the key: the text, the flags and the headers it may include
+        headers = [h.read_text() for d in includes[1::2]
+                   for h in sorted(Path(d).glob("*.cuh"))]
+        key = hashlib.sha256("\0".join(
+            [text, *_build.NVCC_FLAGS, *includes, *headers]).encode()
+        ).hexdigest()[:16]
+        path = out_dir / f"{stem}_{key}.so"
+        if path.exists():
+            started.append((spec, path, None))
+            continue
+        src = out_dir / f"{stem}_{key}.{os.getpid()}.cu"
         src.write_text(text)
-        paths.append(out_dir / f"{stem}_{i}.so")
-        procs.append(subprocess.Popen(
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        started.append((spec, path, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, *includes, "-shared",
-             "-o", str(paths[-1]), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for spec, p in zip(specs, procs):
+             "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return started
+
+
+def finish_variants(started, strict=True):
+    """Wait for ``start_variants``' builds, keep each one's log beside its
+    library (``.log``) and print its ptxas report. → the library paths; a
+    failed build raises, or with ``strict=False`` stands in the list as
+    the ``RuntimeError`` it would raise."""
+    paths = []
+    for spec, path, p in started:
+        if p is None:
+            print(f"variant {spec!r}: built already ({path.name})",
+                  flush=True)
+            paths.append(path)
+            continue
         text = p.communicate()[0]
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        path.with_suffix(".log").write_text(text)
         if p.returncode:
-            raise RuntimeError(f"nvcc failed for {spec!r}:\n{text}")
+            tmp.unlink(missing_ok=True)
+            err = RuntimeError(f"nvcc failed for {spec!r} (log "
+                               f"{path.with_suffix('.log')}):\n{text}")
+            if strict:
+                raise err
+            paths.append(err)
+            continue
+        os.replace(tmp, path)
         lines = text.splitlines()
         report = [f"{m[1]}<{m[2]}>: {lines[n + 3].split(':', 1)[1].strip()}"
                   f"; {lines[n + 2].strip()}"
@@ -95,7 +155,14 @@ def build_variants(specs, _build, source_name=SOURCE):
                                       ln)]
                   if m and "Compiling entry" in ln and n + 3 < len(lines)]
         print(f"variant {spec!r}:", *report, sep="\n    ", flush=True)
+        paths.append(path)
     return paths
+
+
+def build_variants(specs, _build, source_name=SOURCE, hd=None):
+    """One shared library per SPEC, from ``csrc/<source_name>``; nvcc
+    processes run at once (``start_variants``, ``finish_variants``)."""
+    return finish_variants(start_variants(specs, _build, source_name, hd))
 
 
 def main():

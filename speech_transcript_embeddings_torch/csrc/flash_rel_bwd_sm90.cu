@@ -82,7 +82,26 @@ constexpr int kN = 32;          // rows of a streamed tile, the columns of a
 // SM (hd ≤ 64), which hides more of the walk's latency than prefetching does
 constexpr int kStagesA = 1;
 constexpr int kStagesB = 2;
+// 1: the relative bias on the recomputed scores (kernels A and B) and its
+// gradient dqE (kernel A: dq += round(dqE)·E and the dE partials). 0 (an
+// ablation only, scripts/torch_flash_ablate.py): kRelBias = 0 recomputes p
+// without qE (the function with E = 0, as the forward built with it);
+// kRelBiasGrad = 0 drops dqE, so dq has no E term and dE is 0
+constexpr int kRelBias = 1;
+constexpr int kRelBiasGrad = 1;
 constexpr float kNeg = -1e30f;
+
+// a score plus its bias (qE at p, or the value b), or the score alone
+// without the bias
+__device__ __forceinline__ float biased(float s, const bf16* p) {
+  if constexpr (kRelBias != 0) return s + ste_sm90::bf_at(p);
+  else return s;
+}
+
+__device__ __forceinline__ float biased(float s, float b) {
+  if constexpr (kRelBias != 0) return s + b;
+  else return s;
+}
 
 // B fragments of two n-tiles (16 k × 16 n) of a swizzled 64-row [k][n] tile
 __device__ __forceinline__ void load_b_kn_sw(uint32_t* b,
@@ -189,7 +208,8 @@ flash_rel_bwd_dq_wgmma_kernel(
   }
   // E for the qE product, in the space dqE takes later
   bf16* e_s = reinterpret_cast<bf16*>(dqe_s);
-  load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
+  if constexpr (kRelBias != 0)
+    load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
 
   mbar_wait(qd_bar, 0);
   // q_s = round(q·scale) in place (elementwise, so the swizzle does not
@@ -245,40 +265,49 @@ flash_rel_bwd_dq_wgmma_kernel(
   const int li[2] = {wr + g, wr + g + 8};
   const int qi[2] = {i0 + li[0], i0 + li[1]};
   // qE rows of this warp, rounded to bf16 (smem and scratch)
-  for (int n0 = 0; n0 < np_pad; n0 += 16) {
-    float acc[2][4] = {};
+  if constexpr (kRelBias != 0) {
+    for (int n0 = 0; n0 < np_pad; n0 += 16) {
+      float acc[2][4] = {};
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t a[4], b[4];
-      load_a_sw(a, q_s, wr, kk * 16, lane);
-      load_b_nk(b, e_s + n0 * LD + kk * 16, LD, lane);
-      mma(acc[0], a, b);
-      mma(acc[1], a, b + 2);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int col = n0 + nt * 8 + 2 * c4;
-        const __nv_bfloat162 v =
-            __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
-        *reinterpret_cast<__nv_bfloat162*>(qe_s + li[r] * np_pad + col) = v;
-        if (qi[r] < t)
-          *reinterpret_cast<__nv_bfloat162*>(
-              qe_out + (row_t + qi[r]) * np_pad + col) = v;
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t a[4], b[4];
+        load_a_sw(a, q_s, wr, kk * 16, lane);
+        load_b_nk(b, e_s + n0 * LD + kk * 16, LD, lane);
+        mma(acc[0], a, b);
+        mma(acc[1], a, b + 2);
       }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int col = n0 + nt * 8 + 2 * c4;
+          const __nv_bfloat162 v =
+              __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(qe_s + li[r] * np_pad + col) =
+              v;
+          if (qi[r] < t)
+            *reinterpret_cast<__nv_bfloat162*>(
+                qe_out + (row_t + qi[r]) * np_pad + col) = v;
+        }
+    }
   }
   __syncthreads();       // E is read: its space becomes dqE = 0
-  for (int idx = tid; idx < kM * np_pad; idx += kThreads) dqe_s[idx] = 0.0f;
-  __syncthreads();
+  if constexpr (kRelBiasGrad != 0) {
+    for (int idx = tid; idx < kM * np_pad; idx += kThreads) dqe_s[idx] = 0.0f;
+    __syncthreads();
+  }
 
   float lse_r[2], dd_r[2], b_lo[2], b_hi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     lse_r[r] = qi[r] < t ? lse[row_t + qi[r]] : INFINITY;   // p = 0 past t
     dd_r[r] = dd_s[li[r]];
-    b_lo[r] = bf_at(qe_s + li[r] * np_pad);
-    b_hi[r] = bf_at(qe_s + li[r] * np_pad + lr);
+    if constexpr (kRelBias != 0) {
+      b_lo[r] = bf_at(qe_s + li[r] * np_pad);
+      b_hi[r] = bf_at(qe_s + li[r] * np_pad + lr);
+    } else {
+      b_lo[r] = b_hi[r] = 0.0f;
+    }
   }
   float dqa[HD / 2];
 #pragma unroll
@@ -311,17 +340,22 @@ flash_rel_bwd_dq_wgmma_kernel(
     fence_regs(dp);
     const bool all_lo = j0 + kN - 1 - iw <= -left;
     const bool all_hi = j0 - (iw + 15) >= right;
-    if (j0 + kN <= limit && (all_lo || all_hi)) {
+    // with neither the bias nor its gradient, every tile of valid keys
+    // takes the first branch
+    if (j0 + kN <= limit &&
+        (!(kRelBias || kRelBiasGrad) || all_lo || all_hi)) {
       // valid keys outside the band: a row-constant bias, whose gradient
       // is the row sum of ds
 #pragma unroll
       for (int x = 0; x < kN / 2; ++x) {
         const int r = (x >> 1) & 1;
-        const float p = __expf(s[x] + (all_lo ? b_lo[r] : b_hi[r]) -
+        const float p = __expf(biased(s[x], all_lo ? b_lo[r] : b_hi[r]) -
                                lse_r[r]);
         const float ds = p * (dp[x] - dd_r[r]);
-        if (all_lo) lo[r] += ds;
-        else hi[r] += ds;
+        if constexpr (kRelBiasGrad != 0) {
+          if (all_lo) lo[r] += ds;
+          else hi[r] += ds;
+        }
         s[x] = ds;
       }
     } else if (j0 + kN <= limit) {
@@ -332,12 +366,14 @@ flash_rel_bwd_dq_wgmma_kernel(
         const int r = (x >> 1) & 1;
         const int j = j0 + (x >> 2) * 8 + 2 * c4 + (x & 1);
         const int c = min(max(j - qi[r], -left), right) + left;
-        const float p = __expf(s[x] + bf_at(qe_s + li[r] * np_pad + c) -
+        const float p = __expf(biased(s[x], qe_s + li[r] * np_pad + c) -
                                lse_r[r]);
         const float ds = p * (dp[x] - dd_r[r]);
-        lo[r] += c == 0 ? ds : 0.0f;
-        hi[r] += c == lr ? ds : 0.0f;
-        if (c > 0 && c < lr) dqe_s[li[r] * np_pad + c] += ds;
+        if constexpr (kRelBiasGrad != 0) {
+          lo[r] += c == 0 ? ds : 0.0f;
+          hi[r] += c == lr ? ds : 0.0f;
+          if (c > 0 && c < lr) dqe_s[li[r] * np_pad + c] += ds;
+        }
         s[x] = ds;
       }
     } else {
@@ -350,13 +386,15 @@ flash_rel_bwd_dq_wgmma_kernel(
         if (j < t) {
           const int c = min(max(j - qi[r], -left), right) + left;
           const float sv = j >= limit
-              ? kNeg : s[x] + bf_at(qe_s + li[r] * np_pad + c);
+              ? kNeg : biased(s[x], qe_s + li[r] * np_pad + c);
           const float p = __expf(sv - lse_r[r]);
           ds = p * (dp[x] - dd_r[r]);
           // an interior column c gets one key per query: no race
-          if (c == 0) lo[r] += ds;
-          else if (c == lr) hi[r] += ds;
-          else dqe_s[li[r] * np_pad + c] += ds;
+          if constexpr (kRelBiasGrad != 0) {
+            if (c == 0) lo[r] += ds;
+            else if (c == lr) hi[r] += ds;
+            else dqe_s[li[r] * np_pad + c] += ds;
+          }
         }
         s[x] = ds;
       }
@@ -382,47 +420,49 @@ flash_rel_bwd_dq_wgmma_kernel(
     if (tid == 0 && jt + kStagesA < n_tiles) fetch_kv(jt + kStagesA, st);
   }
 
-  // the clipped columns: quad sums in a fixed order; then the padded keys
-  // t..t_pad-1 (zero k and v, so only dqE sees them, and only in a row
-  // whose every key is masked: p = exp(NEG − lse) ≠ 0)
+  if constexpr (kRelBiasGrad != 0) {
+    // the clipped columns: quad sums in a fixed order; then the padded keys
+    // t..t_pad-1 (zero k and v, so only dqE sees them, and only in a row
+    // whose every key is masked: p = exp(NEG − lse) ≠ 0)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lo[r] += __shfl_xor_sync(0xffffffffu, lo[r], 1);
-    lo[r] += __shfl_xor_sync(0xffffffffu, lo[r], 2);
-    hi[r] += __shfl_xor_sync(0xffffffffu, hi[r], 1);
-    hi[r] += __shfl_xor_sync(0xffffffffu, hi[r], 2);
-    if (c4 != 0) continue;
-    float* drow = dqe_s + li[r] * np_pad;
-    drow[0] += lo[r];
-    drow[lr] += hi[r];
-    const float p_pad = __expf(kNeg - lse_r[r]);
-    if (qi[r] < t && p_pad != 0.0f) {
-      const float ds = -p_pad * dd_r[r];
-      for (int j = t; j < t_pad; ++j)
-        drow[min(max(j - qi[r], -left), right) + left] += ds;
+    for (int r = 0; r < 2; ++r) {
+      lo[r] += __shfl_xor_sync(0xffffffffu, lo[r], 1);
+      lo[r] += __shfl_xor_sync(0xffffffffu, lo[r], 2);
+      hi[r] += __shfl_xor_sync(0xffffffffu, hi[r], 1);
+      hi[r] += __shfl_xor_sync(0xffffffffu, hi[r], 2);
+      if (c4 != 0) continue;
+      float* drow = dqe_s + li[r] * np_pad;
+      drow[0] += lo[r];
+      drow[lr] += hi[r];
+      const float p_pad = __expf(kNeg - lse_r[r]);
+      if (qi[r] < t && p_pad != 0.0f) {
+        const float ds = -p_pad * dd_r[r];
+        for (int j = t; j < t_pad; ++j)
+          drow[min(max(j - qi[r], -left), right) + left] += ds;
+      }
     }
-  }
-  // E again, in the space dO and the K/V ring took (every tile was waited
-  // for)
-  e_s = reinterpret_cast<bf16*>(do_s);
-  load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
-  __syncthreads();
+    // E again, in the space dO and the K/V ring took (every tile was waited
+    // for)
+    e_s = reinterpret_cast<bf16*>(do_s);
+    load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
+    __syncthreads();
 
-  // dq += round(dqE)·E, then round, scale by 1/√hd, round
-  for (int kc = 0; kc < np_pad; kc += 16) {
-    uint32_t a[4];
-    const float* d0 = dqe_s + li[0] * np_pad + kc + 2 * c4;
-    const float* d1 = dqe_s + li[1] * np_pad + kc + 2 * c4;
-    a[0] = pack_bf16(d0[0], d0[1]);
-    a[1] = pack_bf16(d1[0], d1[1]);
-    a[2] = pack_bf16(d0[8], d0[9]);
-    a[3] = pack_bf16(d1[8], d1[9]);
+    // dq += round(dqE)·E, then round, scale by 1/√hd, round
+    for (int kc = 0; kc < np_pad; kc += 16) {
+      uint32_t a[4];
+      const float* d0 = dqe_s + li[0] * np_pad + kc + 2 * c4;
+      const float* d1 = dqe_s + li[1] * np_pad + kc + 2 * c4;
+      a[0] = pack_bf16(d0[0], d0[1]);
+      a[1] = pack_bf16(d1[0], d1[1]);
+      a[2] = pack_bf16(d0[8], d0[9]);
+      a[3] = pack_bf16(d1[8], d1[9]);
 #pragma unroll
-    for (int dp2 = 0; dp2 < HD / 16; ++dp2) {
-      uint32_t b[4];
-      load_b_kn(b, e_s + kc * LD + dp2 * 16, LD, lane);
-      mma(&dqa[8 * dp2], a, b);
-      mma(&dqa[8 * dp2 + 4], a, b + 2);
+      for (int dp2 = 0; dp2 < HD / 16; ++dp2) {
+        uint32_t b[4];
+        load_b_kn(b, e_s + kc * LD + dp2 * 16, LD, lane);
+        mma(&dqa[8 * dp2], a, b);
+        mma(&dqa[8 * dp2 + 4], a, b + 2);
+      }
     }
   }
 #pragma unroll
@@ -440,6 +480,11 @@ flash_rel_bwd_dq_wgmma_kernel(
   // dE partial of this block: Σ_i dqE[i, c]·q_s[i, d], dqE as hi + lo bf16
   float* part = de_part +
       (static_cast<int64_t>(row) * gridDim.x + blockIdx.x) * num_pos * HD;
+  if constexpr (kRelBiasGrad == 0) {
+    for (int idx = tid; idx < num_pos * HD; idx += kThreads)
+      part[idx] = 0.0f;
+    return;
+  }
   for (int mt = warp; mt < np_pad / 16; mt += kThreads / 32) {
     float acc[HD / 8][4] = {};
 #pragma unroll
@@ -556,7 +601,7 @@ flash_rel_bwd_dkv_wgmma_kernel(
   }
 
   auto stage_at = [&](int s) { return sm + lay.stage + s * lay.stage_bytes; };
-  const int q_bytes = 2 * kQ + kN * np_pad * 2;
+  const int q_bytes = 2 * kQ + (kRelBias ? kN * np_pad * 2 : 0);
   auto fetch_q = [&](int it, int s) {          // one thread
     unsigned char* dst = stage_at(s);
     mbar_expect_tx(&full[s], q_bytes);
@@ -567,7 +612,8 @@ flash_rel_bwd_dkv_wgmma_kernel(
       tma_load_3d(dst + kQ + c * kN * 128, &tm_do, &full[s], 64 * c,
                   it * kN, row);
     }
-    tma_load_3d(dst + lay.qe_off, &tm_qe, &full[s], 0, it * kN, row);
+    if constexpr (kRelBias != 0)
+      tma_load_3d(dst + lay.qe_off, &tm_qe, &full[s], 0, it * kN, row);
   };
   auto load_ld = [&](int it, int s) {          // plain loads, 32 threads
     float* ld = reinterpret_cast<float*>(stage_at(s) + lay.ld_off);
@@ -630,13 +676,14 @@ flash_rel_bwd_dkv_wgmma_kernel(
     fence_regs(dp);
     const bool all_lo = jw + 15 - iq <= -left;
     const bool all_hi = jw - (iq + kN - 1) >= right;
-    if (keys_valid && (all_lo || all_hi)) {
+    if (keys_valid && (!kRelBias || all_lo || all_hi)) {
       // valid keys outside the band: the bias is qE[i, 0] or qE[i, L+R]
+      // (every tile of valid keys without the bias)
       const int c = all_lo ? 0 : left + right;
 #pragma unroll
       for (int x = 0; x < kN / 2; ++x) {
         const int il = (x >> 2) * 8 + 2 * c4 + (x & 1);
-        const float p = __expf(s[x] + bf_at(qe_t + il * np_pad + c) -
+        const float p = __expf(biased(s[x], qe_t + il * np_pad + c) -
                                lse_t[il]);              // 0 for queries ≥ t
         dp[x] = p * (dp[x] - dd_t[il]);
         s[x] = p;
@@ -648,7 +695,7 @@ flash_rel_bwd_dkv_wgmma_kernel(
         const int il = (x >> 2) * 8 + 2 * c4 + (x & 1);
         const int c = min(max(kj[(x >> 1) & 1] - iq - il, -left), right) +
                       left;
-        const float p = __expf(s[x] + bf_at(qe_t + il * np_pad + c) -
+        const float p = __expf(biased(s[x], qe_t + il * np_pad + c) -
                                lse_t[il]);              // 0 for queries ≥ t
         dp[x] = p * (dp[x] - dd_t[il]);
         s[x] = p;
@@ -663,7 +710,7 @@ flash_rel_bwd_dkv_wgmma_kernel(
         if (j < t) {
           const int c = min(max(j - iq - il, -left), right) + left;
           const float sv = j >= limit
-              ? kNeg : s[x] + bf_at(qe_t + il * np_pad + c);
+              ? kNeg : biased(s[x], qe_t + il * np_pad + c);
           p = __expf(sv - lse_t[il]);
           ds = p * (dp[x] - dd_t[il]);
         }

@@ -71,8 +71,19 @@ constexpr int kM = 64;          // queries a block owns
 constexpr int kN = 32;          // keys of a K/V tile, the columns of a step
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kMinBlocks = 4;   // blocks an SM at hd ≤ 64 (≤ 128 registers)
+// 1: the relative bias qE[i, clip(j − i) + L] on the scores. 0 (an
+// ablation only, scripts/torch_flash_ablate.py): no qE product and no bias,
+// i.e. the function with E = 0
+constexpr int kRelBias = 1;
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// a score plus its bias (qE at p, or the value b), or the score alone
+// without the bias
+__device__ __forceinline__ float biased(float s, const bf16* p) {
+  if constexpr (kRelBias != 0) return s + ste_sm90::bf_at(p);
+  else return s;
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -179,7 +190,8 @@ flash_rel_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       tma_load_3d(q_s + c * kM * 128, &tm_q, q_bar, 64 * c, i0, row);
     fetch_kv(0, 0);                    // every clip walks its first tile
   }
-  load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
+  if constexpr (kRelBias != 0)
+    load_e<HD, kThreads>(e_s, e, num_pos, np_pad, tid);
   const int limit = valid_length(kv_mask, mask_kind, row / nh, t, tid, red);
   // keys at or past the clip's length have p = exp(NEG − m) = 0 unless
   // every key is masked, so only a clip with no valid key walks them all
@@ -210,31 +222,33 @@ flash_rel_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
     load_a_sw(qf[kk], q_s, wr, kk * 16, lane);
-  // qE rows of this warp, rounded to bf16; each warp reads only its own rows
-  for (int n0 = 0; n0 < np_pad; n0 += 16) {
-    float acc[2][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t b[4];
-      load_b_nk(b, e_s + n0 * LD + kk * 16, LD, lane);
-      mma(acc[0], qf[kk], b);
-      mma(acc[1], qf[kk], b + 2);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-        *reinterpret_cast<__nv_bfloat162*>(
-            qe_s + li[r] * np_pad + n0 + nt * 8 + 2 * c4) =
-            __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
-  }
-  __syncwarp();
-
   float b_lo[2], b_hi[2];
+  if constexpr (kRelBias != 0) {
+    // qE rows of this warp, rounded to bf16; each warp reads only its own
+    // rows
+    for (int n0 = 0; n0 < np_pad; n0 += 16) {
+      float acc[2][4] = {};
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    b_lo[r] = bf_at(qe_s + li[r] * np_pad);
-    b_hi[r] = bf_at(qe_s + li[r] * np_pad + lr);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        uint32_t b[4];
+        load_b_nk(b, e_s + n0 * LD + kk * 16, LD, lane);
+        mma(acc[0], qf[kk], b);
+        mma(acc[1], qf[kk], b + 2);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<__nv_bfloat162*>(
+              qe_s + li[r] * np_pad + n0 + nt * 8 + 2 * c4) =
+              __floats2bfloat162_rn(acc[nt][2 * r], acc[nt][2 * r + 1]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      b_lo[r] = bf_at(qe_s + li[r] * np_pad);
+      b_hi[r] = bf_at(qe_s + li[r] * np_pad + lr);
+    }
   }
   float o[HD / 2];
 #pragma unroll
@@ -263,11 +277,12 @@ flash_rel_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(s);
     fence_regs(qf);
 
-    // the bias by band and the key mask (warp-uniform branches)
+    // the bias by band and the key mask (warp-uniform branches); without
+    // the bias every tile of valid keys takes the row-constant branch
     const bool all_lo = j0 + kN - 1 - iw <= -left;
     const bool all_hi = j0 - (iw + 15) >= right;
     float mx[2] = {-INFINITY, -INFINITY};
-    const bool row_const = j0 + kN <= limit && (all_lo || all_hi);
+    const bool row_const = j0 + kN <= limit && (!kRelBias || all_lo || all_hi);
     float bias[2] = {0.0f, 0.0f};
     if (row_const) {
       // valid keys outside the band: one constant per row, added to the
@@ -277,10 +292,12 @@ flash_rel_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int r = (x >> 1) & 1;
         mx[r] = fmaxf(mx[r], s[x]);
       }
+      if constexpr (kRelBias != 0) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        bias[r] = all_lo ? b_lo[r] : b_hi[r];
-        mx[r] += bias[r];
+        for (int r = 0; r < 2; ++r) {
+          bias[r] = all_lo ? b_lo[r] : b_hi[r];
+          mx[r] += bias[r];
+        }
       }
     } else if (j0 + kN <= limit) {
       // valid keys in the band: the bias by element
@@ -305,7 +322,7 @@ flash_rel_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           sv = kNeg;                             // masked key
         } else {
           const int c = min(max(j - qi[r], -left), right) + left;
-          sv = s[x] + bf_at(qe_s + li[r] * np_pad + c);
+          sv = biased(s[x], qe_s + li[r] * np_pad + c);
         }
         s[x] = sv;
         mx[r] = fmaxf(mx[r], sv);

@@ -261,6 +261,20 @@ def device_busy_ms(fn) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 
 
+def timeit(fn, sync, n: int, warmup: int) -> float:
+    """The JAX scripts' ``timeit``: the mean seconds of ``n`` calls of
+    ``fn`` after ``warmup``, the window ending in ``sync()`` (a device sync
+    on a card)."""
+    for _ in range(warmup):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / n
+
+
 def timed_window(step, warm, timed, cuda: bool, sampler=None) -> dict:
     """``step`` on each of ``warm``, then timed on each of ``timed`` (one
     distinct input a step; the window ends in a device sync; the launches
