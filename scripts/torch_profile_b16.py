@@ -15,10 +15,10 @@ step. Two warm steps; then ``--steps`` steps timed without the profiler
 one more step), then ``--steps`` more steps under ``torch.profiler``
 (``utils/bench.device_trace``), each in a ``ProfilerStep#i`` range, each
 phase of the step (frontend, forward, loss, backward, gradient norm,
-optimizer) in a ``phase: <name>`` range (``utils/profile.phase_ranges``)
-and each marked module of the model in a ``module: <name>`` range
-(``utils/profile.module_ranges``). The trace is written to
-``<out>/trace.json.gz`` (kept out of git) and attributed by
+optimizer, metrics) in the ``phase: <name>`` range that ``train_step``
+opens itself (``utils/profile.span``) and each marked module of the model
+in a ``module: <name>`` range (``utils/profile.module_ranges``). The trace
+is written to ``<out>/trace.json.gz`` (kept out of git) and attributed by
 ``utils/profile.attribute``:
 
 * the device: kernel time by family (K1-K4, GEMMs, the depthwise
@@ -97,8 +97,7 @@ def measure(args) -> dict:
     window = (ub.device_trace() if bench.cuda else
               profile(activities=[ProfilerActivity.CPU]))
     marked = up.step_modules(bench.state.model, bench.frontend)
-    with up.module_ranges(marked), \
-            up.phase_ranges(up.step_phases(bench.state)), window as prof:
+    with up.module_ranges(marked), window as prof:
         t0 = time.perf_counter()
         for i, batch in enumerate(batches[WARMUP_STEPS + n:]):
             with record_function(f"{up.STEP_MARK}{i}"):

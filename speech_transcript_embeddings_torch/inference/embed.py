@@ -28,6 +28,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
 )
 from speech_transcript_embeddings_torch.models.layers import Dense
 from speech_transcript_embeddings_torch.ops import make_frontend, quant
+from speech_transcript_embeddings_torch.utils.profile import span
 
 
 def resolve_device(device) -> torch.device:
@@ -148,43 +149,68 @@ class Embedder:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ---- model calls ---------------------------------------------------------
+    # Under a profiler each call opens a ``span`` a phase: ``pad`` (host
+    # tokenising, peak normalisation, bucket and row padding), ``h2d``,
+    # ``frontend`` (log-mel), ``encode``, ``d2h`` (to numpy, rows sliced).
 
     @torch.inference_mode()
     def _embed_text(self, ids, masks) -> torch.Tensor:
-        proj, _ = self.model.encode_text(self._t(ids), self._t(masks))
-        return l2_normalize(proj)
+        with span("h2d"):
+            ids, masks = self._t(ids), self._t(masks)
+        with span("encode"):
+            proj, _ = self.model.encode_text(ids, masks)
+            return l2_normalize(proj)
 
     @torch.inference_mode()
     def _embed_audio(self, wav, lens) -> torch.Tensor:
-        features, mask = self.frontend(self._t(wav), self._t(lens))
-        proj, _ = self.model.encode_audio(features, mask)
-        return l2_normalize(proj)
+        with span("h2d"):
+            wav, lens = self._t(wav), self._t(lens)
+        with span("frontend"):
+            features, mask = self.frontend(wav, lens)
+        del wav, lens       # not held on the device through the encoder
+        with span("encode"):
+            proj, _ = self.model.encode_audio(features, mask)
+            return l2_normalize(proj)
 
     # ---- public API ----------------------------------------------------------
 
     def embed_texts(self, texts: Sequence[str]) -> np.ndarray:
         n = len(texts)
-        ids, masks = self._pad_rows(*self._tokenize(texts))
-        return self._embed_text(ids, masks).cpu().numpy()[:n]
+        with span("pad"):
+            ids, masks = self._pad_rows(*self._tokenize(texts))
+        emb = self._embed_text(ids, masks)
+        with span("d2h"):
+            return emb.cpu().numpy()[:n]
 
     def embed_audios(self, audios: Sequence[np.ndarray]) -> np.ndarray:
         n = len(audios)
-        wav, lens = self._pad_rows(*self._pad_audio(audios))
-        return self._embed_audio(wav, lens).cpu().numpy()[:n]
+        with span("pad"):
+            wav, lens = self._pad_rows(*self._pad_audio(audios))
+        emb = self._embed_audio(wav, lens)
+        with span("d2h"):
+            return emb.cpu().numpy()[:n]
 
     @torch.inference_mode()
     def _pair(self, ids, masks, wav, lens) -> Tuple[np.ndarray, np.ndarray]:
-        features, amask = self.frontend(self._t(wav), self._t(lens))
-        text_emb, audio_emb = self.model.forward_pair({
-            "input_ids": self._t(ids), "attention_mask": self._t(masks),
-            "input_features": features, "attention_mask_audio": amask})
-        return text_emb.cpu().numpy(), audio_emb.cpu().numpy()
+        with span("h2d"):
+            ids, masks, wav, lens = map(self._t, (ids, masks, wav, lens))
+        with span("frontend"):
+            features, amask = self.frontend(wav, lens)
+        del wav, lens       # not held on the device through the encoders
+        with span("encode"):
+            text_emb, audio_emb = self.model.forward_pair({
+                "input_ids": ids, "attention_mask": masks,
+                "input_features": features, "attention_mask_audio": amask})
+        with span("d2h"):
+            return text_emb.cpu().numpy(), audio_emb.cpu().numpy()
 
     def embed_pair(self, text: str, audio: np.ndarray
                    ) -> Tuple[float, np.ndarray, np.ndarray]:
         """The model's pair forward (``forward_pair``) → (similarity,
         text_emb, audio_emb)."""
-        te, ae = self._pair(*self._tokenize([text]), *self._pad_audio([audio]))
+        with span("pad"):
+            padded = *self._tokenize([text]), *self._pad_audio([audio])
+        te, ae = self._pair(*padded)
         return float(np.sum(te[0] * ae[0])), te[0], ae[0]
 
     def pair_similarities(self, texts: Sequence[str],
@@ -195,8 +221,10 @@ class Embedder:
         n = len(texts)
         if n != len(audios):
             raise ValueError(f"{n} texts for {len(audios)} clips")
-        te, ae = self._pair(*self._pad_rows(*self._tokenize(texts),
-                                            *self._pad_audio(audios)))
+        with span("pad"):
+            padded = self._pad_rows(*self._tokenize(texts),
+                                    *self._pad_audio(audios))
+        te, ae = self._pair(*padded)
         return np.sum(te[:n] * ae[:n], axis=1)
 
     @staticmethod

@@ -31,6 +31,7 @@ from speech_transcript_embeddings_torch.parallel import collectives
 from speech_transcript_embeddings_torch.parallel import mesh as mesh_lib
 from speech_transcript_embeddings_torch.training import losses
 from speech_transcript_embeddings_torch.training import optimizer as opt_lib
+from speech_transcript_embeddings_torch.utils.profile import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -118,27 +119,40 @@ def train_step(cfg: ExperimentConfig, state: TrainState, frontend,
     """One micro-step → metrics (device tensors: no host sync): ``loss``,
     ``clean_hr``, ``corrupt_hr`` (this rank's rows under data parallel)
     and ``grad_norm`` of this micro-batch's raw gradient (averaged over the
-    data axis)."""
+    data axis). Under a profiler every launch of the step falls in one
+    ``span``: ``frontend``, ``forward``, ``loss``, ``backward``,
+    ``grad_sync`` (on a data axis), ``grad_norm``, ``optimizer``,
+    ``metrics`` (the autograd engine's own thread opens none: its launches
+    are the backward's)."""
     device = next(iter(state.trainable.values())).device
     axis, group = data_axis(), data_group(state.mesh)
-    mb = model_batch_from_host(frontend, batch, device)
-    out = state.model.forward_pos_neg(mb, generator)
-    loss, aux = losses.compute_loss(cfg.loss, out, axis, group)
-    params = list(state.trainable.values())
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(state.trainable.items(), grads)}
+    with span("frontend"):
+        mb = model_batch_from_host(frontend, batch, device)
+    with span("forward"):
+        out = state.model.forward_pos_neg(mb, generator)
+    with span("loss"):
+        loss, aux = losses.compute_loss(cfg.loss, out, axis, group)
+    with span("backward"):
+        params = list(state.trainable.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(state.trainable.items(), grads)}
     if axis is not None:
-        collectives.all_reduce_mean_(list(grads.values()), group)
-    grad_norm = state.optimizer.global_norm(grads)
-    state.optimizer.step(grads)
+        with span("grad_sync"):
+            collectives.all_reduce_mean_(list(grads.values()), group)
+    with span("grad_norm"):
+        grad_norm = state.optimizer.global_norm(grads)
+    with span("optimizer"):
+        state.optimizer.step(grads)
     state.step += 1
     t = cfg.loss.temperature
-    return {"loss": loss.detach(),
-            "clean_hr": losses.to_human_readable(aux.s_pos.detach(), t).mean(),
-            "corrupt_hr": losses.to_human_readable(aux.s_neg.detach(),
-                                                   t).mean(),
-            "grad_norm": grad_norm}
+    with span("metrics"):
+        return {"loss": loss.detach(),
+                "clean_hr": losses.to_human_readable(aux.s_pos.detach(),
+                                                     t).mean(),
+                "corrupt_hr": losses.to_human_readable(aux.s_neg.detach(),
+                                                       t).mean(),
+                "grad_norm": grad_norm}
 
 
 def _per_sample_eval_loss(cfg, aux: losses.LossAux, alignment_scores):

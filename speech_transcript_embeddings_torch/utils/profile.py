@@ -23,6 +23,12 @@ never ``key_averages()``:
   the host clock, so time overlap would misattribute): the outermost op
   (a module range or an autograd node) and the innermost (``aten::…``),
   summed by name over the gaps longer than ``GAP_US``.
+
+``span`` is the program's own mark: ``training/train_step.py`` and
+``inference/embed.py`` open a ``phase: <name>`` range around each phase of
+a train step and of an embedding call while a profiler records, so every
+trace of them (the tools', ``train.profile_dir``'s, the benchmark's) names
+the phase each launch and each idle gap falls in.
 """
 
 from __future__ import annotations
@@ -54,9 +60,10 @@ DEVICE_KEYS = ("device_ms_per_step", "device_busy_ms_per_step",
                "idle_ms_per_step", "idle_gaps_over_ms_per_step",
                "idle_attributed_share")
 TOP = 20
-# the ranges the tools open: a train step (``ProfilerStep#i``), a phase of
-# the step (``phase_ranges``) and a module (``module_ranges``). The outermost
-# op of a launch is the outermost range or op below the step and the phase.
+# the ranges of a trace: a train step (``ProfilerStep#i``, the tools'), a
+# phase (``span``, the program's) and a module (``module_ranges``, the
+# tools'). The outermost op of a launch is the outermost range or op below
+# the step and the phase.
 STEP_MARK = "ProfilerStep#"
 PHASE_MARK = "phase: "
 MODULE_MARK = "module: "
@@ -109,6 +116,18 @@ def host_name(name: str) -> str:
     return re.sub(r"layer_\d+", "layer_*", re.sub(r"#\d+", "#*", name))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range ``phase: <name>`` while a profiler
+    records; else a shared no-op context, so that a span off costs one
+    flag check."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(PHASE_MARK + name)
+    return _NO_SPAN
+
+
 # ---- reading a trace --------------------------------------------------------
 
 def load_trace(path: str) -> List[dict]:
@@ -144,12 +163,6 @@ def call_ranges(targets: Dict[str, Sequence[tuple]]):
                 setattr(owner, attr, old)
             else:
                 delattr(owner, attr)
-
-
-def phase_ranges(targets: Dict[str, tuple]):
-    """``call_ranges`` named ``phase: <name>``, one call site a phase."""
-    return call_ranges({PHASE_MARK + name: [call]
-                        for name, call in targets.items()})
 
 
 @contextlib.contextmanager
@@ -188,23 +201,6 @@ def module_ranges(named: Dict[str, torch.nn.Module]):
     finally:
         for h in handles:
             h.remove()
-
-
-def step_phases(state) -> Dict[str, tuple]:
-    """The phases ``phase_ranges`` marks in ``training/train_step.py``'s
-    ``train_step`` on ``state``: the frontend and the host-to-device copy,
-    the forward, the loss, the backward (``torch.autograd.grad``: on a
-    card the autograd engine runs it on a thread of its own, and this
-    range is the calling thread's wait), the gradient norm, the AdamW
-    update."""
-    from speech_transcript_embeddings_torch.training import losses
-    from speech_transcript_embeddings_torch.training import train_step as ts
-    return {"frontend": (ts, "model_batch_from_host"),
-            "forward": (state.model, "forward_pos_neg"),
-            "loss": (losses, "compute_loss"),
-            "backward": (torch.autograd, "grad"),
-            "grad_norm": (state.optimizer, "global_norm"),
-            "optimizer": (state.optimizer, "step")}
 
 
 def step_modules(model: torch.nn.Module, frontend=None

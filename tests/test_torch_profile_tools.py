@@ -352,9 +352,9 @@ def test_module_and_phase_ranges_close_and_restore():
     lin, raiser = torch.nn.Linear(3, 3), Raiser()
     owner = types.SimpleNamespace(f=lambda x: x + 1)
     from torch.profiler import ProfilerActivity, profile
-    with up.module_ranges({"lin": lin, "r": raiser}), up.phase_ranges(
-            {"f": (owner, "f"), "g": (lin, "forward")}), profile(
-            activities=[ProfilerActivity.CPU]) as prof:
+    with up.module_ranges({"lin": lin, "r": raiser}), up.call_ranges(
+            {"phase: f": [(owner, "f")], "phase: g": [(lin, "forward")]}), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
         lin(torch.ones(3))
         assert owner.f(1) == 2
         for _ in range(2):
