@@ -13,7 +13,13 @@ forward (phase 3) and backward (phase 6). Each flash direction has a
 tensor-core kernel (bf16, the main paths) and a CUDA-core one (fp32);
 phases 3 and 6 time both (device time, and back-to-back calls beside it),
 the twin and SDPA without the bias (a yardstick, not the same function) at
-the main paths' shapes, each beside its bound.
+the main paths' shapes, each beside its bound. The LayerNorm kernels
+(phase 17, run after phase 6) are held against the plain chain within one
+bf16 step and timed forward and backward at the conformer's bf16
+activations of the cells, beside their bytes bound, the chain and ATen's
+bf16 LayerNorm. Every path that counts its launches also counts the
+plain LayerNorm calls on the card (``LnCalls``) and holds the LayerNorm
+kernels' launches equal to them.
 Runs a small fp32 model on the GPU (kernels) and on the CPU (twins), for
 serving (phase 4) and for one optimizer step (phase 7). Serves the
 full-width ``retrieval_model_config()`` model (random weights from a seed)
@@ -561,9 +567,12 @@ def _ptxas_report(pattern):
         elif entry and "spill" in ln:
             spill = ln.strip()
         elif entry and "registers" in ln:
-            m = re.search(r"\d+([a-z_]+" + pattern + r")ILi(\d+)", entry)
-            report.append(f"{m[1]}<{m[2]}>: {ln.split(':', 1)[1].strip()}; "
-                          f"{spill}")
+            # the kernel's name and its template arguments: an int
+            # (ILi64E), or as mangled
+            m = re.search(r"\d+([a-z_]*" + pattern
+                          + r"[a-z_]*)(?:ILi(\d+)E|I(.*?)E)?E", entry)
+            report.append(f"{m[1]}<{m[2] or m[3] or ''}>: "
+                          f"{ln.split(':', 1)[1].strip()}; {spill}")
             entry = None
     return report
 
@@ -946,6 +955,199 @@ def phase6():
     return worst, worst_abs, times
 
 
+# phase 17: the LayerNorm kernels at the conformer's bf16 activations of
+# the cells: the embed cell's 10 s bucket ([64, 512, 1024]) and the b64
+# train cell's ([64, 499, 1024])
+LN_SHAPES = ((64, 512, 1024), (64, 499, 1024))
+LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd_dx", "layer_norm_bwd_dgamma")
+
+
+class LnCalls:
+    """Counts the plain ``LayerNorm`` calls on the card from its creation
+    to ``stop``, apart from the kernels' own counter (``LAUNCHES``, cleared
+    here): ``LayerNorm.forward`` is wrapped, so every model built meanwhile
+    is seen. A call counts as one forward launch before it runs (a remat
+    replay that stops inside it has launched); an output that a gradient
+    reaches counts one ``layer_norm_bwd_dx`` launch, and one
+    ``layer_norm_bwd_dgamma`` where γ or β trains. ``ShardedLayerNorm``
+    keeps its own forward and is not counted."""
+
+    def __init__(self):
+        from speech_transcript_embeddings_torch.models import layers
+        from speech_transcript_embeddings_torch.ops import layer_norm as ln
+        self.calls = dict.fromkeys(LN_KERNELS, 0)
+        self._forward = forward = layers.LayerNorm.forward
+        calls = self.calls
+
+        def counted(module, x):
+            if not x.is_cuda:
+                return forward(module, x)
+            calls["layer_norm_fwd"] += 1
+            y = forward(module, x)
+            if y.requires_grad:
+                affine = module.weight.requires_grad or \
+                    module.bias.requires_grad
+
+                def reached(_):
+                    calls["layer_norm_bwd_dx"] += 1
+                    calls["layer_norm_bwd_dgamma"] += affine
+                y.register_hook(reached)
+            return y
+
+        ln.LAUNCHES.clear()
+        layers.LayerNorm.forward = counted
+
+    def stop(self, what):
+        """Unwraps the forward; raises unless the kernels launched as often
+        as the calls say, and at least once. → the launches by kernel."""
+        from speech_transcript_embeddings_torch.models import layers
+        from speech_transcript_embeddings_torch.ops import layer_norm as ln
+        layers.LayerNorm.forward = self._forward
+        launched = {k: ln.LAUNCHES[k] for k in LN_KERNELS}
+        if launched != self.calls or not launched["layer_norm_fwd"]:
+            raise AssertionError(f"{what}: LayerNorm kernels launched "
+                                 f"{launched}, plain LayerNorm calls want "
+                                 f"{self.calls}")
+        return launched
+
+
+def queued_ms(fn, iters=20, warmup=3, hold_ms=40):
+    """Mean device time of ``fn`` in ms, without the host's pace: CUDA
+    events around ``iters`` calls that the host queues while the device
+    spins in ``torch.cuda._sleep`` ahead of them (``hold_ms`` at the
+    card's 1,980 MHz, longer if the queue ran dry), so they run back to
+    back (the gaps between dependent kernels included)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(hold_ms * 1e-3 * 1.98e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()        # the device still holds
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        hold_ms *= 4
+    raise RuntimeError(f"queued_ms: the host did not queue {iters} calls "
+                       f"within {hold_ms / 4} ms")
+
+
+def _ln_err(got, want):
+    """The largest |got − want| in units of one bf16 rounding of want
+    (2⁻⁸ of its magnitude), on a floor of 1e-6 of want's largest."""
+    import torch
+    want = want.float()
+    unit = torch.clamp(want.abs() * 2 ** -8, min=1e-6 * want.abs().max())
+    return ((got.float() - want).abs() / unit).max().item()
+
+
+def phase17():
+    """The LayerNorm kernels (``ops/layer_norm.py``) at ``LN_SHAPES`` in
+    bf16, γ and β fp32 with their gradients: the forward, the backward
+    (dx, then dγ and dβ from persistent partials) and the backward of a
+    frozen bf16 γ, β (dx alone), each held against the plain chain within
+    one bf16 step (2⁻⁷ of the value: the two sides round fp32 values that
+    differ in their last bits) and timed (``queued_ms``: device time, the
+    host's pace left out) beside its bytes bound, the plain chain (input
+    cast, γ/β widened, ATen fp32 LayerNorm, cast back) and ATen's LayerNorm
+    on bf16 (``library_ms``, which the port never calls). Prints the
+    kernels' ptxas report."""
+    import torch
+    import torch.nn.functional as F
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
+    log(17, "ptxas: " + "; ".join(_ptxas_report("layer_norm")))
+    out = {}
+    for shape in LN_SHAPES:
+        g = torch.Generator().manual_seed(sum(shape))
+        rows, n = shape[0] * shape[1], shape[2]
+        x = (torch.randn(*shape, generator=g) * 3 + 1).to("cuda",
+                                                          torch.bfloat16)
+        dy = torch.randn(*shape, generator=g).to("cuda", torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(n, generator=g)).to("cuda")
+        b = (0.1 * torch.randn(n, generator=g)).to("cuda")
+        wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        eps, bf = 1e-5, torch.bfloat16
+        y, xc, mean, rstd = ln._fwd(x, w, b, eps, bf)
+        dx, dgamma, dbeta = ln._bwd(dy, xc, w, mean, rstd, True, True)
+        dx_frozen = ln._bwd(dy, xc, wb, mean, rstd, True, False)[0]
+        # the plain chain and its autograd backward
+        xr, wr, br = (t.detach().clone().requires_grad_() for t in (x, w, b))
+        want = ln.layer_norm_reference(xr, wr, br, eps, bf)
+        want_dx, want_dg, want_db = torch.autograd.grad(
+            want, (xr, wr, br), dy, retain_graph=True)
+        xf = x.detach().clone().requires_grad_()
+        want_f = ln.layer_norm_reference(xf, wb, bb, eps, bf)
+        want_dx_frozen = torch.autograd.grad(want_f, (xf,), dy,
+                                             retain_graph=True)[0]
+        torch.cuda.synchronize()
+        err = {"y": _ln_err(y, want), "dx": _ln_err(dx, want_dx),
+               "dx_frozen": _ln_err(dx_frozen, want_dx_frozen)}
+        for name, got, ref in (("dgamma", dgamma, want_dg),
+                               ("dbeta", dbeta, want_db)):
+            err[name] = ((got - ref).abs().max() / ref.abs().max()).item()
+        if max(err["y"], err["dx"], err["dx_frozen"]) > 2.0 or \
+                max(err["dgamma"], err["dbeta"]) > 1e-4:
+            raise AssertionError(f"layer_norm at {shape}: {err} (bf16 "
+                                 "roundings; dγ, dβ relative to the largest)")
+        # ATen's LayerNorm on bf16 (the yardstick) and its backward
+        xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, wb, bb))
+        lib = F.layer_norm(xl, (n,), wl, bl, eps)
+        fwd = lambda: ln._fwd(x, w, b, eps, bf)
+        bwd = lambda: ln._bwd(dy, xc, w, mean, rstd, True, True)
+        times = {
+            "fwd_ms": queued_ms(fwd),
+            "bwd_ms": queued_ms(bwd),
+            "bwd_frozen_ms": queued_ms(
+                lambda: ln._bwd(dy, xc, wb, mean, rstd, True, False)),
+            "fwd_call_ms": cuda_ms(fwd), "bwd_call_ms": cuda_ms(bwd),
+            "plain_fwd_ms": queued_ms(
+                lambda: ln.layer_norm_reference(x, w, b, eps, bf)),
+            "plain_fwd_frozen_ms": queued_ms(
+                lambda: ln.layer_norm_reference(x, wb, bb, eps, bf)),
+            "plain_bwd_ms": queued_ms(lambda: torch.autograd.grad(
+                want, (xr, wr, br), dy, retain_graph=True)),
+            "plain_bwd_frozen_ms": queued_ms(lambda: torch.autograd.grad(
+                want_f, (xf,), dy, retain_graph=True)),
+            "library_fwd_ms": queued_ms(
+                lambda: F.layer_norm(x, (n,), wb, bb, eps)),
+            "library_bwd_ms": queued_ms(lambda: torch.autograd.grad(
+                lib, (xl, wl, bl), dy, retain_graph=True)),
+            "max_err": err}
+        # each input read once, each output written once: x, y (bf16),
+        # γ, β, μ, rstd forward; dy, x, dx, μ, rstd, γ, dγ, dβ backward
+        times["fwd_bound_ms"], times["fwd_bound_by"] = bound_ms(
+            7 * rows * n, rows * n * 4 + 8 * n + 8 * rows, FP32_PEAK)
+        times["bwd_bound_ms"], times["bwd_bound_by"] = bound_ms(
+            12 * rows * n, rows * n * 6 + 12 * n + 8 * rows, FP32_PEAK)
+        times["bwd_frozen_bound_ms"], _ = bound_ms(
+            8 * rows * n, rows * n * 6 + 2 * n + 8 * rows, FP32_PEAK)
+        for d in ("fwd", "bwd", "bwd_frozen"):
+            times[f"{d}_share"] = times[f"{d}_bound_ms"] / times[f"{d}_ms"]
+        key = "x".join(map(str, shape))
+        out[key] = times
+        log(17, f"layer_norm {key} bf16: fwd {times['fwd_ms']:.4f} ms "
+                f"(bound {times['fwd_bound_ms']:.4f}, "
+                f"{100 * times['fwd_share']:.1f}%; plain "
+                f"{times['plain_fwd_ms']:.4f}, frozen "
+                f"{times['plain_fwd_frozen_ms']:.4f}; ATen bf16 "
+                f"{times['library_fwd_ms']:.4f}), bwd {times['bwd_ms']:.4f} "
+                f"(bound {times['bwd_bound_ms']:.4f}, "
+                f"{100 * times['bwd_share']:.1f}%; plain "
+                f"{times['plain_bwd_ms']:.4f}; ATen bf16 "
+                f"{times['library_bwd_ms']:.4f}), frozen bwd "
+                f"{times['bwd_frozen_ms']:.4f} "
+                f"({100 * times['bwd_frozen_share']:.1f}%; plain "
+                f"{times['plain_bwd_frozen_ms']:.4f}); err {err}",
+            **{"shape": key, **times})
+    return out
+
+
 def _clip(seconds, seed):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -986,6 +1188,7 @@ def phase4():
     cpu, gpu = Embedder(cfg, cpu_model), Embedder(cfg, gpu_model)
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     fa.LAUNCHES.clear()           # counts of this fp32 path start at zero
+    ln_calls = LnCalls()
     errs = [float(np.abs(gpu.embed_texts(texts) - cpu.embed_texts(texts)).max())]
     for clips in batches:
         a, b = gpu.embed_audios(clips), cpu.embed_audios(clips)
@@ -993,6 +1196,7 @@ def phase4():
             raise AssertionError("non-finite small-config embeddings")
         errs.append(float(np.abs(a - b).max()))
     launches = dict(fa.LAUNCHES)
+    ln_launched = ln_calls.stop("fp32 serving")
     worst = max(errs)
     if worst > 1e-4:
         raise AssertionError(f"GPU (kernels) vs CPU (twins) embeddings differ "
@@ -1000,6 +1204,7 @@ def phase4():
     if set(launches) != {"flash_rel_fwd"} or launches["flash_rel_fwd"] < 6:
         raise AssertionError(f"fp32 serving launched {launches}: want only "
                              f"the CUDA-core kernel, twice per audio batch")
+    launches.update(ln_launched)
     log(4, f"small f32 model (2 layers, audio 256/4 heads, text 128): GPU "
            f"kernels vs CPU twins max err {worst:.2e} (tol 1e-4) over texts "
            f"and buckets 41200/164080/491760; flash launches {launches}",
@@ -1258,6 +1463,7 @@ def _phase5(tmp):
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
+    ln_calls = LnCalls()
     try:
         status, body, lat["healthz"] = _request(url + "/healthz")
         if status != 200 or body["projection_dim"] != 768:
@@ -1299,7 +1505,8 @@ def _phase5(tmp):
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
                 "flash_rel_fwd_wgmma": fa.LAUNCHES["flash_rel_fwd_wgmma"],
-                "flash_rel_fwd": fa.LAUNCHES["flash_rel_fwd"]}
+                "flash_rel_fwd": fa.LAUNCHES["flash_rel_fwd"],
+                **ln_calls.stop("serving")}
     by_frames = dict(fk.log_mel.launches_by_frames)
     layers = cfg.model.audio.num_layers
     if launches["flash_rel_fwd_wgmma"] != layers * audio_forwards or \
@@ -1391,6 +1598,7 @@ def _phase5_int8(path, texts, batch16, text_bf16, audio_bf16, bf16, layers):
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
     quant.int8_matmul.launches = 0
+    ln_calls = LnCalls()
     try:
         for tag in ("cold", "warm"):
             _, body, lat[f"embed_text_4_{tag}"] = _request(
@@ -1414,6 +1622,7 @@ def _phase5_int8(path, texts, batch16, text_bf16, audio_bf16, bf16, layers):
             "int8_products": 2 * (per_path["text"] + per_path["audio"])}
     if launches != want:
         raise AssertionError(f"int8 serving launched {launches}, want {want}")
+    launches.update(ln_calls.stop("int8 serving"))
     cos_audio = np.sum(audio_embs * audio_bf16, axis=1)
     cos_text = np.sum(text_embs * text_bf16, axis=1)
     res = _breakdown(service.embedder, {"16 clips of 4.7 s": (
@@ -1565,8 +1774,9 @@ def _step_run(cfg, model, batches, device, dropout=False):
     """One optimizer step (accumulation 2) of ``model``'s weights on
     ``device`` from two host batches: each micro-batch's gradient before
     any update, ``train_step``'s metrics, the trainable weights after, the
-    flash launches. With ``dropout``, dropout and SpecAugment draw from the
-    run's stream, restarted for each pass. Under a process group (phases
+    flash and LayerNorm launches (the latter held to ``LnCalls`` on the
+    card). With ``dropout``, dropout and SpecAugment draw from the run's
+    stream, restarted for each pass. Under a process group (phases
     11, 12) the model sits on ``cfg``'s mesh: each rank takes its data
     index's rows of every batch, and the gradients and the loss are
     averaged over the data axis, as the train step averages them; under
@@ -1583,6 +1793,7 @@ def _step_run(cfg, model, batches, device, dropout=False):
     from speech_transcript_embeddings_torch.training import loop, losses
     from speech_transcript_embeddings_torch.training import train_step as ts
     fa.LAUNCHES.clear()       # counts of this path start at zero
+    ln_calls = LnCalls() if str(device).startswith("cuda") else None
     mesh = mesh_lib.make_mesh(cfg) if collectives.initialized() \
         else mesh_lib.Mesh()
     with torch.device(device):
@@ -1619,8 +1830,11 @@ def _step_run(cfg, model, batches, device, dropout=False):
     for k, p in state.frozen.items():
         if not torch.equal(p, frozen0[k]):
             raise AssertionError(f"frozen {k} changed on {device}")
+    launches = {k: n for k, n in fa.LAUNCHES.items() if n}
+    if ln_calls:
+        launches.update(ln_calls.stop(f"one step on {device}"))
     return (metrics, {k: p.detach().cpu() for k, p in
-                      state.trainable.items()}, grads, dict(fa.LAUNCHES))
+                      state.trainable.items()}, grads, launches)
 
 
 def _one_step_gpu_vs_cpu(cfg, phase, what):
@@ -1633,7 +1847,7 @@ def _one_step_gpu_vs_cpu(cfg, phase, what):
     runs = {device: _step_run(cfg, model, batches, device)
             for device in ("cuda", "cpu")}
     launches = runs["cuda"][3]
-    if set(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
+    if _flash(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
         raise AssertionError(f"fp32 training launched {launches}: want only "
                              "the CUDA-core kernels")
     out = _hold_step(cfg, runs["cuda"], runs["cpu"], model, "GPU", "CPU")
@@ -1719,6 +1933,11 @@ def _hold_step(cfg, got, want, model, got_name, want_name):
 
 FLASH_KERNELS = ("flash_rel_fwd_wgmma", "flash_rel_bwd_wgmma", "flash_rel_fwd",
                  "flash_rel_bwd")
+
+
+def _flash(launches):
+    """The flash kernels that ``launches`` (kernel → count) launched."""
+    return {k for k, n in launches.items() if n and k in FLASH_KERNELS}
 N_PARAMS = 863_886_658
 N_TRAINABLE = 354_846_082
 # preset=flagship (fusion and word alignment on), from the JAX abstract
@@ -1737,8 +1956,8 @@ def phase8():
     parameter split, finite losses, the frozen split untouched, the
     trainable split moved, and that every micro-step and every forward ran
     the kernels (K4 24 times a micro-step, K3 24 times a forward with no
-    remat replay, the log-mel kernels once per batch). Then scores the
-    final_model with ``scripts/torch_int8_quality_eval.py`` (``_int8_eval``,
+    remat replay, the log-mel kernels once per batch, the LayerNorm kernels
+    as ``LnCalls`` counts the calls). Then scores the final_model with ``scripts/torch_int8_quality_eval.py`` (``_int8_eval``,
     a path of its own) while the run's directory still holds it. → (the
     training path's launches, warm clips/s, the int8 eval's launches)."""
     import numpy as np
@@ -1765,6 +1984,7 @@ def phase8():
         fk.log_mel.launches_by_frames.clear()
         fk.normalize_and_stack.launches = 0
         fa.LAUNCHES.clear()
+        ln_calls = LnCalls()
         t0 = time.perf_counter()
         res = cli.main(argv)
         torch.cuda.synchronize()
@@ -1772,6 +1992,7 @@ def phase8():
         launches = {"log_mel": fk.log_mel.launches,
                     "log_mel_normalize": fk.normalize_and_stack.launches,
                     **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+        ln_launched = ln_calls.stop("preset=retrieval training")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         cfg, state = res["cfg"], res["state"]
         ep = res["epochs"][0]
@@ -1791,6 +2012,7 @@ def phase8():
                 f"launches {launches} != {want} for {micro} micro-steps, "
                 f"{n_eval} eval, {res['test_batches']} test and "
                 f"{res['retrieval_batches']} retrieval batches")
+        launches.update(ln_launched)
         if (res["n_params"], res["n_trainable"]) != (N_PARAMS, N_TRAINABLE):
             raise AssertionError(f"{res['n_params']} params, "
                                  f"{res['n_trainable']} trainable")
@@ -1912,6 +2134,7 @@ def phase9():
         fk.log_mel.launches_by_frames.clear()
         fk.normalize_and_stack.launches = 0
         fa.LAUNCHES.clear()
+        ln_calls = LnCalls()
         t0 = time.perf_counter()
         first = cli.main(argv + [f"train.fault_inject_preempt_at={PREEMPT_AT}"])
         torch.cuda.synchronize()
@@ -1936,6 +2159,7 @@ def phase9():
         launches = {"log_mel": fk.log_mel.launches,
                     "log_mel_normalize": fk.normalize_and_stack.launches,
                     **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+        ln_launched = ln_calls.stop("preset=flagship training")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         cfg, state = res["cfg"], res["state"]
         ep = res["epochs"][0]
@@ -1957,6 +2181,7 @@ def phase9():
                 f"launches {launches} != {want} for {micro} micro-steps, "
                 f"{ep['eval_batches']} eval, {res['test_batches']} test and "
                 f"{res['retrieval_batches']} retrieval batches")
+        launches.update(ln_launched)
         if (res["n_params"], res["n_trainable"]) != (FLAGSHIP_PARAMS,
                                                      FLAGSHIP_TRAINABLE):
             raise AssertionError(f"{res['n_params']} params, "
@@ -2305,6 +2530,7 @@ def phase10():
             fk.log_mel.launches = 0
             fa.LAUNCHES.clear()
             quant.int8_matmul.launches = 0
+            ln_calls = LnCalls()
             t0 = time.perf_counter()
             res = infer.main(["batch", "--checkpoint", dst, "--num-samples",
                               "32", "--device", "cuda", "--dataset",
@@ -2313,7 +2539,8 @@ def phase10():
             secs = time.perf_counter() - t0
             counts = {"log_mel": fk.log_mel.launches,
                       "int8_products": quant.int8_matmul.launches,
-                      **{k: v for k, v in fa.LAUNCHES.items() if v}}
+                      **{k: v for k, v in fa.LAUNCHES.items() if v},
+                      **ln_calls.stop(f"infer {tag}")}
             embs = np.concatenate([res["text_embeddings"],
                                    res["audio_embeddings"]])
             norms = np.linalg.norm(embs, axis=1)
@@ -2345,6 +2572,7 @@ def phase10():
         fk.log_mel.launches_by_frames.clear()
         fk.normalize_and_stack.launches = 0
         fa.LAUNCHES.clear()
+        ln_calls = LnCalls()
         t0 = time.perf_counter()
         res = cli.main(argv)
         torch.cuda.synchronize()
@@ -2352,6 +2580,7 @@ def phase10():
         launches = {"log_mel": fk.log_mel.launches,
                     "log_mel_normalize": fk.normalize_and_stack.launches,
                     **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+        ln_launched = ln_calls.stop("training from the converted checkpoint")
         losses = [st["loss"] for st in res["step_log"]]
         layers = flagship_model_config().audio.num_layers
         want = {"log_mel": 2, "log_mel_normalize": 2,
@@ -2364,6 +2593,7 @@ def phase10():
             raise AssertionError(f"two micro-steps from the converted "
                                  f"checkpoint: {res.get('preempted')}, "
                                  f"losses {losses}, launches {launches}")
+        launches.update(ln_launched)
         start = ckpt.load_stored_state(dst)
         after = ckpt.load_stored_state(os.path.join(tmp, "run", "latest"))
         frozen = [k for k, v in after.items() if v.dtype == torch.bfloat16]
@@ -2496,7 +2726,7 @@ def _phase11a(tmp):
         if not ranks[1]["run"][1][k].equal(p):
             raise AssertionError(f"ranks disagree on {k} after the update")
     launches = ranks[0]["run"][3]
-    if set(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
+    if _flash(launches) != {"flash_rel_fwd", "flash_rel_bwd"}:
         raise AssertionError(f"fp32 training launched {launches}")
     model = _small_model(cfg)
     one = _step_run(cfg, model, _small_batches(cfg), "cuda")
@@ -2640,6 +2870,7 @@ def _dp_worker_b(out):
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
+    ln_calls = LnCalls()
     first = cli.main(argv + [f"train.fault_inject_preempt_at={DP_FLAG_AT}"])
     if first.get("preempted") != {"epoch": 1, "batches_done": DP_FLAG_AT}:
         raise AssertionError(f"preemption: {first.get('preempted')}")
@@ -2651,6 +2882,7 @@ def _dp_worker_b(out):
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
                 **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+    ln_launched = ln_calls.stop("data-parallel training")
     cfg, state, ep = res["cfg"], res["state"], res["epochs"][0]
     if ep["skipped_batches"] != DP_FLAG_AT:
         raise AssertionError(f"no mid-epoch resume: {ep}")
@@ -2664,6 +2896,7 @@ def _dp_worker_b(out):
             "log_mel": forwards, "log_mel_normalize": forwards}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
+    launches.update(ln_launched)
     losses = [s["loss"] for s in first["step_log"] + res["step_log"]]
     if len(losses) != micro or not np.isfinite(losses).all():
         raise AssertionError(f"micro-step losses {losses}")
@@ -2885,7 +3118,7 @@ def _phase12a(tmp):
         one = _step_run(cfg, model, _small_batches(cfg), "cuda",
                         dropout=True)
         launches[dtype] = got[3]
-        if set(got[3]) != want_kernels or set(one[3]) != want_kernels:
+        if _flash(got[3]) != want_kernels or _flash(one[3]) != want_kernels:
             raise AssertionError(f"{dtype} launched {got[3]} at model=2, "
                                  f"{one[3]} in one process")
         errs = {f"{key}_{i}": abs(g[key] - o[key]) / abs(o[key])
@@ -3057,8 +3290,10 @@ def _tp_worker_c(out):
     fk.log_mel.launches = 0
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
+    ln_calls = LnCalls()
     res = cli.main(["device=cuda", "mesh.num_model=2"] + _tp_argv(run))
     torch.cuda.synchronize()
+    ln_launched = ln_calls.stop("(c) tensor-parallel training")
     mesh = res["state"].mesh
     text = open(os.path.join(run, "training.log")).read() \
         if mesh.rank == 0 else ""
@@ -3072,7 +3307,8 @@ def _tp_worker_c(out):
     return {"losses": losses,
             "launches": {"log_mel": fk.log_mel.launches,
                          "log_mel_normalize": fk.normalize_and_stack.launches,
-                         **{k: fa.LAUNCHES[k] for k in FLASH_KERNELS}}}
+                         **{k: fa.LAUNCHES[k] for k in FLASH_KERNELS},
+                         **ln_launched}}
 
 
 def _tp_worker_b(out, ref):
@@ -3103,6 +3339,7 @@ def _tp_worker_b(out, ref):
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
+    ln_calls = LnCalls()
     torch.cuda.reset_peak_memory_stats()
     res = cli.main(["device=cuda", "mesh.num_model=2"] + _tp_argv(run))
     torch.cuda.synchronize()
@@ -3110,6 +3347,7 @@ def _tp_worker_b(out, ref):
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
                 **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
+    ln_launched = ln_calls.stop(f"(b) tensor-parallel training, rank {rank}")
     cfg, state, ep = res["cfg"], res["state"], res["epochs"][0]
     mesh = state.mesh
     # the whole model's counts, from the one-process model on meta
@@ -3134,6 +3372,7 @@ def _tp_worker_b(out, ref):
             "log_mel": forwards, "log_mel_normalize": forwards}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
+    launches.update(ln_launched)
     shapes = state.model.full_shapes()
     split, vocab_rows = 0, None
     for k, p in state.model.named_parameters():
@@ -3374,11 +3613,13 @@ def _int8_eval(checkpoint):
     with open(os.path.join(checkpoint, "metadata.json")) as f:
         dim = json.load(f)["config"]["model"]["heads"]["projection_dim"]
     ub.reset_launches()
+    ln_calls = LnCalls()
     t0 = time.perf_counter()
     res = tint8.main(["--checkpoint", checkpoint, "--limit", str(INT8_POOL),
                       "--device", "cuda"])
     secs = time.perf_counter() - t0
     launches = ub.launches()
+    ln_calls.stop("the int8 eval")
     frames = ub.log_mel_frames()
     with open(os.path.join(os.path.dirname(checkpoint),
                            "int8_quality_eval.json")) as f:
@@ -3428,6 +3669,7 @@ def _phase13_proxy():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         ub.reset_launches()
+        ln_calls = LnCalls()
         t0 = time.perf_counter()
         res = tproxy.main([os.path.join(tmp, "proxy"), "--preset-retrieval",
                            "--samples", str(PROXY_CLIPS), "--acc", "1",
@@ -3436,6 +3678,7 @@ def _phase13_proxy():
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = ub.launches()
+        ln_launched = ln_calls.stop("the quality proxy")
         frames = ub.log_mel_frames()
         with open(os.path.join(tmp, "proxy", "proxy_summary.json")) as f:
             summary = json.load(f)
@@ -3448,7 +3691,7 @@ def _phase13_proxy():
     want = {"flash_rel_bwd_wgmma": layers * micro,
             "flash_rel_fwd_wgmma": layers * (forwards + micro),
             "flash_rel_fwd": 0, "flash_rel_bwd": 0, "log_mel": forwards,
-            "log_mel_normalize": forwards, "int8_matmul": 0}
+            "log_mel_normalize": forwards, "int8_matmul": 0, **ln_launched}
     if launches != want:
         raise AssertionError(
             f"launches {launches} != {want} for {micro} micro-steps, "
@@ -3876,6 +4119,7 @@ def main():
     serve_fp32, int8_small = timed(4, phase4)
     serve, serve_int8 = timed(5, phase5)
     bwd_err, bwd_abs_err, bwd_times = timed(6, phase6)
+    ln_times = timed(17, phase17)
     train_fp32 = timed(7, phase7)
     train, warm_clips_per_s, int8_eval = timed(8, phase8)
     flagship, flagship_step, _ = timed(9, phase9)
@@ -3966,6 +4210,32 @@ def main():
             "at": f"bf16, B·h {at[0]}, t_pad {at[1]}, hd 64",
             "ms_by_shape": {f"{bh}x{t}": v[route_key]
                             for (bh, t), v in times.items()}})
+    # the LayerNorm kernels replace no TPU kernel: every time at the embed
+    # cell's [64, 512, 1024] bf16
+    ln_at = "x".join(map(str, LN_SHAPES[0]))
+    for name, d in (("layer_norm_fwd", "fwd"), ("layer_norm_bwd_dx", "bwd")):
+        tm = ln_times[ln_at]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{REPO}/csrc/layer_norm.cu",
+            "replaces": None, "max_err_bf16_steps": tm["max_err"],
+            "ms": tm[f"{d}_ms"], "call_ms_back_to_back": tm[f"{d}_call_ms"],
+            "plain_ms": tm[f"plain_{d}_ms"], "bound_ms": tm[f"{d}_bound_ms"],
+            "bound_by": tm[f"{d}_bound_by"],
+            "library_ms": tm[f"library_{d}_ms"],
+            "at": f"bf16 [{ln_at.replace('x', ', ')}], fp32 γ, β",
+            "ms_by_shape": {k: v[f"{d}_ms"] for k, v in ln_times.items()}})
+    # dγ and dβ: the partial rows' sum, launched right after dx where γ or
+    # β trains; its time is inside layer_norm_bwd_dx's ms (the affine
+    # backward), and the frozen backward's time is dx alone
+    tm = ln_times[ln_at]
+    kernels.append({
+        "name": "layer_norm_bwd_dgamma", "route": "cuda",
+        "source": f"{REPO}/csrc/layer_norm.cu", "replaces": None,
+        "max_rel_err": {k: tm["max_err"][k] for k in ("dgamma", "dbeta")},
+        "ms": None, "ms_inside": "layer_norm_bwd_dx",
+        "bwd_ms_minus_frozen_bwd_ms": tm["bwd_ms"] - tm["bwd_frozen_ms"],
+        "at": f"bf16 [{ln_at.replace('x', ', ')}], fp32 γ, β"})
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",

@@ -30,6 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from speech_transcript_embeddings_torch.ops.layer_norm import (
+    layer_norm as layer_norm_op,
+)
 from speech_transcript_embeddings_torch.parallel.collectives import (
     ModelAxis, all_reduce_model, copy_to_model, reduce_from_model,
 )
@@ -59,7 +62,9 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics and parameters (a parameter stored in
-    another dtype is widened at the call), output in ``dtype``."""
+    another dtype is widened at the call), output in ``dtype``: the CUDA
+    kernels of ``ops/layer_norm.py`` on the card, the plain chain on the
+    CPU."""
 
     def __init__(self, dim: int, eps: float, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -69,8 +74,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(dim, dtype=torch.float32))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight.float(),
-                            self.bias.float(), self.eps).to(self.dtype)
+        return layer_norm_op(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 class Embed(nn.Module):

@@ -38,6 +38,9 @@ _SIGNATURES = {
     "ste_flash_rel_fwd_wgmma": ([_P] * 5 + [_I] + [_P] * 2 + [_I] * 7
                                 + [_F, _I, _P]),
     "ste_flash_rel_bwd_wgmma": [_P] * 15 + [_I] * 7 + [_F, _F, _I, _P],
+    "ste_layer_norm_fwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _P],
+    "ste_layer_norm_bwd": [_P] * 9 + [_I] * 7 + [_P],
+    "ste_layer_norm_bwd_blocks": [_I, _I, _I, _P],
 }
 
 

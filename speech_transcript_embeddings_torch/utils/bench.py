@@ -117,25 +117,32 @@ def reset_launches() -> None:
     """Every kernel wrapper's launch count (and int8 products) to 0."""
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
     from speech_transcript_embeddings_torch.ops import quant
     fk.log_mel.launches = 0
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
+    ln.LAUNCHES.clear()
     quant.int8_matmul.launches = 0
 
 
 def launches() -> Dict[str, int]:
     """Launches since ``reset_launches``: each kernel by its counter's name
-    (the CUDA-core flash pair too), and ``int8_matmul``."""
+    (the CUDA-core flash pair and the LayerNorm kernels too), and
+    ``int8_matmul``."""
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
     from speech_transcript_embeddings_torch.ops import quant
     return {"log_mel": fk.log_mel.launches,
             "log_mel_normalize": fk.normalize_and_stack.launches,
             **{k: fa.LAUNCHES[k] for k in ("flash_rel_fwd_wgmma",
                                            "flash_rel_bwd_wgmma",
                                            "flash_rel_fwd", "flash_rel_bwd")},
+            **{k: ln.LAUNCHES[k] for k in ("layer_norm_fwd",
+                                           "layer_norm_bwd_dx",
+                                           "layer_norm_bwd_dgamma")},
             "int8_matmul": quant.int8_matmul.launches}
 
 
@@ -217,12 +224,17 @@ def count_flops(fn, *args, **kwargs) -> int:
     """The FLOPs of the matrix products of ``fn(*args, **kwargs)`` (2·M·N·K
     a product; convolutions likewise), by torch's formulas. Call it on a
     model and frontend built with the kernels off: a kernel's products are
-    not seen, and a launch during the count raises."""
-    before = launches()
+    not seen, and a launch during the count raises (the LayerNorm kernels,
+    which the card always runs, compute no products)."""
+    def product_launches():
+        return {k: n for k, n in launches().items()
+                if not k.startswith("layer_norm")}
+
+    before = product_launches()
     counter = _ProductCounter()
     with counter:
         fn(*args, **kwargs)
-    if launches() != before:
+    if product_launches() != before:
         raise RuntimeError("a kernel launched while counting FLOPs: count "
                            "with use_flash_attention and use_pallas off")
     return counter.flops

@@ -259,3 +259,199 @@ def test_main_path_shapes_launch_the_mma_kernels(cuda):
              if n != before.get(name, 0)}
     assert grown == {"flash_rel_fwd_wgmma": 1, "flash_rel_bwd_wgmma": 1}
 
+
+
+# ---- LayerNorm (ops/layer_norm.py, csrc/layer_norm.cu) ---------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (input, output) dtypes: the encoders, the feature norm, the heads
+LN_DTYPES = [(BF16, BF16), (F32, BF16), (F32, F32), (BF16, F32)]
+LN_DTYPE_IDS = ["bf16", "fp32_in_bf16_out", "fp32", "bf16_in_fp32_out"]
+
+
+def _ln_inputs(cuda, shape, x_dtype, frozen, seed, transposed=False):
+    """x (requires grad), γ, β: fp32 with grad, or bf16 frozen as
+    ``create_train_state`` keeps them; the transposed x is the depthwise
+    norm's view of the conv's [B, H, T] output."""
+    g = torch.Generator().manual_seed(seed)
+    n = shape[-1]
+    if transposed:
+        b, t, h = shape
+        x = (torch.randn(b, h, t, generator=g) * 3 + 1).to(cuda, x_dtype)
+        x = x.transpose(1, 2)
+    else:
+        x = (torch.randn(*shape, generator=g) * 3 + 1).to(cuda, x_dtype)
+    w = (1 + 0.1 * torch.randn(n, generator=g)).to(cuda)
+    b_ = (0.1 * torch.randn(n, generator=g)).to(cuda)
+    if frozen:
+        w, b_ = w.to(BF16), b_.to(BF16)
+    return (x.requires_grad_(), w.requires_grad_(not frozen),
+            b_.requires_grad_(not frozen))
+
+
+def _ln_close(got, want, what):
+    """Within one rounding of the output dtype (bf16: 2⁻⁷ of the value, or
+    fp32 sums in another order), on a floor of 1e-5 of the largest."""
+    rtol = 2 ** -7 if got.dtype == BF16 else 1e-5
+    atol = 1e-5 * want.float().abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=what)
+
+
+def _ln_check(cuda, shape, x_dtype, dtype, frozen, seed, transposed=False):
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
+    x, w, b = _ln_inputs(cuda, shape, x_dtype, frozen, seed, transposed)
+    dy = torch.randn(*shape, generator=torch.Generator().manual_seed(
+        seed + 1)).to(cuda, dtype)
+    before = dict(ln.LAUNCHES)
+    y = ln.layer_norm(x, w, b, 1e-5, dtype)
+    y.backward(dy)
+    grads = [x.grad] + ([] if frozen else [w.grad, b.grad])
+    grown = {k: v - before.get(k, 0) for k, v in ln.LAUNCHES.items()
+             if v != before.get(k, 0)}
+    want_launches = {"layer_norm_fwd": 1, "layer_norm_bwd_dx": 1}
+    if not frozen:
+        want_launches["layer_norm_bwd_dgamma"] = 1
+    assert grown == want_launches
+    refs = [t.detach().clone().requires_grad_(t.requires_grad)
+            for t in (x, w, b)]
+    want = ln.layer_norm_reference(*refs, 1e-5, dtype)
+    want.backward(dy)
+    torch.cuda.synchronize()
+    _ln_close(y, want, "y")
+    for name, got, ref in zip(("dx", "dgamma", "dbeta"), grads,
+                              [r.grad for r in refs]):
+        assert torch.isfinite(got).all(), name
+        if name == "dx":
+            _ln_close(got, ref, name)
+        else:       # sums over every row: within 1e-4 of the largest
+            assert got.dtype == ref.dtype == F32, name
+            scale = ref.abs().max().clamp_min(1e-30)
+            assert ((got - ref).abs().max() / scale).item() <= 1e-4, name
+
+
+@pytest.mark.parametrize("rows", [1, 97, 4099], ids=lambda r: f"rows{r}")
+@pytest.mark.parametrize("frozen", [False, True],
+                         ids=["fp32_affine", "frozen_bf16_affine"])
+@pytest.mark.parametrize("x_dtype,dtype", LN_DTYPES, ids=LN_DTYPE_IDS)
+@pytest.mark.parametrize("width", [160, 768, 1024])
+def test_layer_norm_kernels_match_plain(cuda, width, x_dtype, dtype, frozen,
+                                        rows):
+    """Forward and backward through ``layer_norm`` against autograd of the
+    plain chain, and one launch of each kernel that the call needs."""
+    _ln_check(cuda, (rows, width), x_dtype, dtype, frozen, width + rows)
+
+
+@pytest.mark.parametrize("frozen", [False, True],
+                         ids=["fp32_affine", "frozen_bf16_affine"])
+@pytest.mark.parametrize("t", [128, 256, 499, 512, 768])
+def test_layer_norm_kernels_at_the_cells_shapes(cuda, t, frozen):
+    """The conformer's [64, T, 1024] bf16 activations of the cells."""
+    _ln_check(cuda, (64, t, 1024), BF16, BF16, frozen, t)
+
+
+@pytest.mark.parametrize("frozen", [False, True],
+                         ids=["fp32_affine", "frozen_bf16_affine"])
+def test_layer_norm_kernels_on_the_depthwise_transposed_input(cuda, frozen):
+    _ln_check(cuda, (8, 499, 1024), BF16, BF16, frozen, 11, transposed=True)
+
+
+def test_layer_norm_backward_is_deterministic(cuda):
+    """dx, dγ and dβ (persistent partials summed in a fixed order, no
+    atomics) give the same bits launch after launch, and match the plain
+    versions of the statistics and of the backward formula."""
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
+    x, w, b = _ln_inputs(cuda, (64, 499, 1024), BF16, False, 12)
+    y, xc, mean, rstd = ln._fwd(x.detach(), w.detach(), b.detach(), 1e-5,
+                                BF16)
+    dy = torch.randn(64, 499, 1024, generator=torch.Generator().manual_seed(
+        13)).to(cuda, BF16)
+    first = ln._bwd(dy, xc, w.detach(), mean, rstd, True, True)
+    second = ln._bwd(dy, xc, w.detach(), mean, rstd, True, True)
+    again = ln._fwd(x.detach(), w.detach(), b.detach(), 1e-5, BF16)
+    torch.cuda.synchronize()
+    for name, a, b_ in zip(("dx", "dgamma", "dbeta"), first, second):
+        assert torch.equal(a, b_), name
+    assert torch.equal(y, again[0]) and torch.equal(rstd, again[3])
+    # and the plain versions of the statistics and of the backward formula
+    want_mean, want_rstd = ln.layer_norm_stats_reference(xc, 1e-5)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=1e-5)
+    want = ln.layer_norm_bwd_reference(dy, xc, w.detach(), mean, rstd)
+    _ln_close(first[0], want[0], "dx")
+    for name, got, ref in zip(("dgamma", "dbeta"), first[1:], want[1:]):
+        scale = ref.abs().max()
+        assert ((got - ref).abs().max() / scale).item() <= 1e-4, name
+
+
+def test_layer_norm_weight_grad_without_input_grad(cuda):
+    """The feature norm: the input needs no gradient, γ and β do: one
+    forward, the backward's partials and their sum, no dx."""
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
+    x, w, b = _ln_inputs(cuda, (4, 300, 160), F32, False, 14)
+    x.requires_grad_(False)
+    dy = torch.randn(4, 300, 160, generator=torch.Generator().manual_seed(
+        15)).to(cuda, BF16)
+    before = dict(ln.LAUNCHES)
+    ln.layer_norm(x, w, b, 1e-5, BF16).backward(dy)
+    refs = [t.detach().clone().requires_grad_() for t in (w, b)]
+    ln.layer_norm_reference(x, *refs, 1e-5, BF16).backward(dy)
+    torch.cuda.synchronize()
+    assert {k: v - before.get(k, 0) for k, v in ln.LAUNCHES.items()} == {
+        "layer_norm_fwd": 1, "layer_norm_bwd_dx": 1,
+        "layer_norm_bwd_dgamma": 1}
+    for got, ref in ((w.grad, refs[0].grad), (b.grad, refs[1].grad)):
+        scale = ref.abs().max()
+        assert ((got - ref).abs().max() / scale).item() <= 1e-4
+
+
+@pytest.mark.parametrize("width", [12, 4104])
+def test_layer_norm_kernel_refuses_unsupported_widths(cuda, width):
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
+    x = torch.zeros(3, width, device=cuda, dtype=BF16)
+    w, b = torch.ones(width, device=cuda), torch.zeros(width, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ln.layer_norm(x, w, b, 1e-5, BF16)
+
+
+def test_layer_norm_launches_count_every_plain_layer_norm(cuda):
+    """A small bf16 model's train forward and backward on the card: one
+    forward launch for each plain LayerNorm call, one backward for each
+    call whose output took a gradient, none of ATen's LayerNorm."""
+    from speech_transcript_embeddings_torch.config import tiny_model_config
+    from speech_transcript_embeddings_torch.models import layers
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        DualEncoderModel, init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import layer_norm as ln
+    import dataclasses
+    mc = tiny_model_config()
+    mc = dataclasses.replace(mc, dtype="bfloat16", audio=dataclasses.replace(
+        mc.audio, use_flash_attention=False))
+    model = init_model(mc, torch.Generator(cuda).manual_seed(0), cuda,
+                       train=True)
+    assert isinstance(model, DualEncoderModel)
+    calls = []
+    for mod in model.modules():
+        if type(mod) is layers.LayerNorm:
+            mod.register_forward_hook(
+                lambda m, i, o: calls.append(o.requires_grad))
+    g = torch.Generator().manual_seed(1)
+    b, t, n = 2, 40, 12
+    feats = torch.randn(b, t, mc.audio.feature_dim, generator=g).to(cuda)
+    mask = torch.ones(b, t, dtype=torch.int32, device=cuda)
+    ids = torch.randint(4, mc.text.vocab_size, (b, n), generator=g).to(cuda)
+    tmask = torch.ones(b, n, dtype=torch.int32, device=cuda)
+    ln.LAUNCHES.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        audio = model.encode_audio(feats, mask)[0]
+        text = model.encode_text(ids, tmask)[0]
+        (audio.float().sum() + text.float().sum()).backward()
+        torch.cuda.synchronize()
+    assert calls and ln.LAUNCHES["layer_norm_fwd"] == len(calls)
+    assert ln.LAUNCHES["layer_norm_bwd_dx"] == sum(calls)
+    names = [e.name for e in prof.events()]
+    assert not [n_ for n_ in names if "vectorized_layer_norm" in n_
+                or "GammaBeta" in n_ or "layer_norm_grad" in n_]

@@ -8,7 +8,7 @@ profile.py``) on the CPU, at tiny sizes:
     kernels on two streams that overlap, gaps whose ending kernel's
     correlation id names its launch, one that names none): self times,
     busy union, overlap, span, idle and each gap's attribution equal the
-    values worked out by hand; ``kernel_family`` on the eight
+    values worked out by hand; ``kernel_family`` on the
     ``__global__`` kernels of ``csrc/`` and on library names as a card's
     trace prints them;
 (b) the functions each tool times equal JAX's on weights carried across
@@ -252,7 +252,7 @@ def _global_kernels():
 
 def test_kernel_family_of_the_port_s_eight_kernels():
     names = _global_kernels()
-    assert len(names) == 8, names
+    assert len(names) == 11, names
     want = {"log_mel_normalize_kernel": "K1 log-mel normalise",
             "log_mel_fft_kernel": "K2 log-mel",
             "flash_rel_fwd_kernel": "K3 flash forward",
@@ -260,7 +260,12 @@ def test_kernel_family_of_the_port_s_eight_kernels():
             "flash_rel_bwd_dq_kernel": "K4 flash backward",
             "flash_rel_bwd_dkv_kernel": "K4 flash backward",
             "flash_rel_bwd_dq_wgmma_kernel": "K4 flash backward",
-            "flash_rel_bwd_dkv_wgmma_kernel": "K4 flash backward"}
+            "flash_rel_bwd_dkv_wgmma_kernel": "K4 flash backward",
+            # the LayerNorm kernels stay in the class ATen's LayerNorm had
+            "layer_norm_fwd_kernel": "reduction (softmax, LayerNorm, sums)",
+            "layer_norm_bwd_dx_kernel": "reduction (softmax, LayerNorm, sums)",
+            "layer_norm_bwd_dgamma_kernel":
+                "reduction (softmax, LayerNorm, sums)"}
     assert sorted(want) == names
     for name in names:
         # as a trace prints them: templated, in the anonymous namespace
