@@ -22,16 +22,23 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Tuple, Union
 
 
 def _replace_from_dict(obj, d: dict):
-    """Recursively apply a (possibly nested) dict of overrides to a dataclass."""
+    """Recursively apply a (possibly nested) dict of overrides to a dataclass.
+    A group whose dict names DeepSeek-V2's ``model_type`` starts from
+    ``DeepseekV2TextConfig``'s defaults (a port-only rule: the JAX package
+    has one text tower)."""
     updates = {}
     for k, v in d.items():
         if not hasattr(obj, k):
             raise ValueError(f"Unknown config field {k!r} for {type(obj).__name__}")
         cur = getattr(obj, k)
+        if isinstance(v, dict) and \
+                v.get("model_type") == DeepseekV2TextConfig.model_type and \
+                not isinstance(cur, DeepseekV2TextConfig):
+            cur = DeepseekV2TextConfig()
         if dataclasses.is_dataclass(cur) and isinstance(v, dict):
             updates[k] = _replace_from_dict(cur, v)
         elif isinstance(cur, tuple) and isinstance(v, list):
@@ -66,6 +73,78 @@ class TextEncoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
+
+
+@dataclass(frozen=True)
+class YarnRopeScaling:
+    """DeepSeek-V2's ``rope_scaling`` group: YaRN frequencies (an interpolation
+    by ``factor`` below the ``beta_slow`` … ``beta_fast`` rotation band) and
+    the attention scale's ``mscale`` terms."""
+
+    type: str = "yarn"
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+@dataclass(frozen=True)
+class DeepseekV2TextConfig:
+    """A DeepSeek-V2 decoder as the transcript tower (port only; the JAX
+    package has no such tower). Every key of the published ``config.json``
+    under its own name; defaults are ``deepseek-ai/DeepSeek-V2-Lite``'s: 27
+    pre-RMSNorm causal layers of width 2,048, latent attention (MLA: 16
+    heads, no query compression, a 512-wide compressed KV and a 64-wide
+    rotary key shared by the heads, YaRN rope), layer 0 a dense SwiGLU
+    10,944 wide, layers 1-26 64 routed SwiGLU experts 1,408 wide (softmax
+    router, greedy top-6, no renormalisation) plus 2 shared experts.
+    ``model_type`` is the key that tells this group from
+    ``TextEncoderConfig`` in a config's JSON (``_replace_from_dict``)."""
+
+    model_type: str = "deepseek_v2"
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    n_shared_experts: int = 2
+    n_routed_experts: int = 64
+    routed_scaling_factor: float = 1.0
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    qk_nope_head_dim: int = 128
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    num_experts_per_tok: int = 6
+    moe_layer_freq: int = 1
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = False
+    scoring_func: str = "softmax"
+    seq_aux: bool = True
+    hidden_act: str = "silu"
+    max_position_embeddings: int = 163840
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    rope_scaling: YarnRopeScaling = field(default_factory=YarnRopeScaling)
+    attention_bias: bool = False
+    tie_word_embeddings: bool = False
+
+    @property
+    def num_layers(self) -> int:
+        """The block count the freeze labels read (``layer_<i>``)."""
+        return self.num_hidden_layers
+
+    @property
+    def scan_bottom(self) -> int:
+        """No scanned bottom stack: the JAX package has no such tower."""
+        return 0
 
 
 @dataclass(frozen=True)
@@ -179,7 +258,8 @@ class HeadsConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    text: TextEncoderConfig = field(default_factory=TextEncoderConfig)
+    text: Union[TextEncoderConfig, DeepseekV2TextConfig] = field(
+        default_factory=TextEncoderConfig)
     audio: AudioEncoderConfig = field(default_factory=AudioEncoderConfig)
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     heads: HeadsConfig = field(default_factory=HeadsConfig)
@@ -253,6 +333,16 @@ def roberta_model_config() -> "ModelConfig":
         heads=dataclasses.replace(base.heads, projection_dim=1024,
                                   use_word_alignment=False),
     )
+
+
+def deepseek_v2_lite_model_config() -> "ModelConfig":
+    """The retrieval preset with DeepSeek-V2-Lite as its transcript tower
+    (`preset=deepseek-v2-lite`, port only): the published model whole, 27
+    layers, 64 routed and 2 shared experts a layer, the whole vocabulary;
+    attentive pooling and the projection to 768, no fusion or alignment
+    heads. 15.49 B parameters in the tower (31.0 GB in bf16)."""
+    return dataclasses.replace(retrieval_model_config(),
+                               text=DeepseekV2TextConfig())
 
 
 @dataclass(frozen=True)

@@ -5,7 +5,8 @@ Port of ``speech_transcript_embeddings_tpu/inference/embed.py``: an
 JAX API — ``embed_texts`` and ``embed_audios`` (independent projection-space
 embeddings), ``embed_pair`` and ``pair_similarities`` (the model's pair
 forward, cross-modal fusion included when the config fuses) and
-``similarity`` — plus a vectorised ``retrieval_metrics``. Requests keep the
+``similarity`` — plus a vectorised ``retrieval_metrics`` and the port's
+``embed_ids`` (transcripts already tokenised). Requests keep the
 JAX package's shapes: rows padded to a power of two, and audio padded to
 one of the configured buckets after peak normalisation, so the kernels see
 only those lengths. ``quantize_int8`` switches the Dense products of the
@@ -20,7 +21,9 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from speech_transcript_embeddings_torch.config import ExperimentConfig
+from speech_transcript_embeddings_torch.config import (
+    DeepseekV2TextConfig, ExperimentConfig,
+)
 from speech_transcript_embeddings_torch.data import Tokenizer, resolve_tokenizer
 from speech_transcript_embeddings_torch import checkpoints as ckpt_lib
 from speech_transcript_embeddings_torch.models.dual_encoder import (
@@ -71,7 +74,11 @@ class Embedder:
         it; → self. The weights are quantized as stored (``model.pt`` of the
         checkpoint: fp32 where training kept fp32), not from the serving
         storage, as JAX quantizes the weights it restored. A second call
-        finds no Dense left to quantize and changes nothing."""
+        finds no Dense left to quantize and changes nothing. The
+        DeepSeek-V2 tower's stacked experts have no int8 path: refused."""
+        if isinstance(self.cfg.model.text, DeepseekV2TextConfig):
+            raise ValueError("int8 serving does not cover the DeepSeek-V2 "
+                             "text tower (its stacked expert weights)")
         called = set()
         dense = {name: m for name, m in self.model.named_modules()
                  if isinstance(m, Dense)}
@@ -178,6 +185,17 @@ class Embedder:
         n = len(texts)
         with span("pad"):
             ids, masks = self._pad_rows(*self._tokenize(texts))
+        emb = self._embed_text(ids, masks)
+        with span("d2h"):
+            return emb.cpu().numpy()[:n]
+
+    def embed_ids(self, ids: np.ndarray, masks: np.ndarray) -> np.ndarray:
+        """Transcripts already tokenised: ``ids`` and ``masks`` ``[n, T]``
+        as ``embed_texts`` makes them (right-padded to ``max_text_length``)
+        → their embeddings ``[n, D]``."""
+        n = len(ids)
+        with span("pad"):
+            ids, masks = self._pad_rows(ids, masks)
         emb = self._embed_text(ids, masks)
         with span("d2h"):
             return emb.cpu().numpy()[:n]

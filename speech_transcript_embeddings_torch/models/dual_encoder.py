@@ -26,9 +26,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from speech_transcript_embeddings_torch.config import ModelConfig
+from speech_transcript_embeddings_torch.config import (
+    DeepseekV2TextConfig, ModelConfig,
+)
 from speech_transcript_embeddings_torch.models.audio_encoder import (
     AudioEncoder, ConvModule, RelPositionAttention,
+)
+from speech_transcript_embeddings_torch.models.deepseek_v2 import (
+    DeepseekV2TextTower, Experts, RMSNorm, Router,
 )
 from speech_transcript_embeddings_torch.models.heads import (
     AttentivePooling, CrossModalAttention, EnhancedProjection,
@@ -80,8 +85,11 @@ class DualEncoderModel(nn.Module):
         self.param_dtype = param_dtype
         self.axis = axis
         dtype = compute_dtype(cfg)
-        self.text_encoder = TextEncoder(cfg.text, dtype, param_dtype,
-                                        remat=cfg.remat, axis=axis)
+        tower = (DeepseekV2TextTower
+                 if isinstance(cfg.text, DeepseekV2TextConfig)
+                 else TextEncoder)
+        self.text_encoder = tower(cfg.text, dtype, param_dtype,
+                                  remat=cfg.remat, axis=axis)
         self.audio_encoder = AudioEncoder(cfg.audio, dtype, param_dtype,
                                           remat=cfg.remat, axis=axis)
         proj = lambda in_dim: EnhancedProjection(
@@ -259,6 +267,13 @@ def init_module(module: nn.Module, generator: torch.Generator, device="cpu",
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, RMSNorm):
+            mod.weight.fill_(1.0)
+        elif isinstance(mod, Router):
+            put(at + "weight", mod.weight, lecun(1))
+        elif isinstance(mod, Experts):
+            put(at + "gate_up_proj", mod.gate_up_proj, lecun(-1))
+            put(at + "down_proj", mod.down_proj, lecun(-1))
         elif isinstance(mod, RelPositionAttention):
             put(at + "distance_embedding", mod.distance_embedding,
                 normal(lambda s: 0.02))
@@ -279,7 +294,9 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, device="cpu",
     kernels lecun-normal (truncated normal, std 1/√fan_in), Embed tables
     normal with std 1/√features, depthwise kernels lecun-normal over the
     kernel width, distance embeddings normal(0.02), the SpecAugment vector
-    uniform[0, 1), biases 0, LayerNorm 1/0. ``train`` keeps Dense and Embed
+    uniform[0, 1), biases 0, LayerNorm 1/0 (the DeepSeek-V2 tower's, which
+    JAX lacks: its router and each expert's products lecun-normal, RMSNorm
+    1). ``train`` keeps Dense and Embed
     weights in fp32 and gradients on (the trainer then freezes its split);
     otherwise the model is the serving form: weights in the compute dtype,
     eval mode, no gradients. With ``axis`` (tensor parallel) each tensor

@@ -6,9 +6,11 @@
 The presets and the dotted ``k=v`` overrides are those of
 ``speech_transcript_embeddings_tpu.train`` (that module imports the JAX
 training loop, so the table is copied here and a test holds the two equal).
-All four presets run: ``tiny``, ``flagship`` and ``flagship-roberta`` with
-the cross-modal fusion heads (and word alignment in the first two),
-``retrieval`` without. ``device`` defaults to ``cuda``; ``cuda`` without a
+All four presets of JAX's table run: ``tiny``, ``flagship`` and
+``flagship-roberta`` with the cross-modal fusion heads (and word alignment
+in the first two), ``retrieval`` without; the port adds
+``deepseek-v2-lite``, the retrieval recipe with DeepSeek-V2-Lite as the
+transcript tower (``config.deepseek_v2_lite_model_config``). ``device`` defaults to ``cuda``; ``cuda`` without a
 card raises, and nothing falls back to the CPU. Rerunning with the same
 ``train.output_dir`` resumes from its ``latest`` checkpoint, mid-epoch
 after a preemption (SIGTERM). Examples:
@@ -59,7 +61,8 @@ import torch
 from speech_transcript_embeddings_torch import config as config_lib
 
 _MPNET_TOKENIZER = "sentence-transformers/paraphrase-multilingual-mpnet-base-v2"
-PRESETS = ("tiny", "flagship", "flagship-roberta", "retrieval")
+PRESETS = ("tiny", "flagship", "flagship-roberta", "retrieval",
+           "deepseek-v2-lite")
 
 
 def build_config(argv) -> config_lib.ExperimentConfig:
@@ -97,6 +100,12 @@ def build_config(argv) -> config_lib.ExperimentConfig:
             loss=c.LossConfig(kind="global"),
             optimizer=c.OptimizerConfig(mu_dtype="bfloat16"),
             data=c.DataConfig(tokenizer=_MPNET_TOKENIZER))
+    elif preset == "deepseek-v2-lite":
+        cfg = c.ExperimentConfig(
+            model=c.deepseek_v2_lite_model_config(), freeze=partial,
+            loss=c.LossConfig(kind="global"),
+            optimizer=c.OptimizerConfig(mu_dtype="bfloat16"),
+            data=c.DataConfig(tokenizer="deepseek-ai/DeepSeek-V2-Lite"))
     elif preset == "flagship-roberta":
         cfg = c.ExperimentConfig(
             model=c.roberta_model_config(), freeze=partial,
