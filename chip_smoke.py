@@ -17,8 +17,10 @@ the main paths' shapes, each beside its bound. The LayerNorm kernels
 (phase 17, run after phase 6) are held against the plain chain within one
 bf16 step and timed forward and backward at the conformer's bf16
 activations of the cells, beside their bytes bound, the chain and ATen's
-bf16 LayerNorm. Every path that counts its launches also counts the
-plain LayerNorm calls on the card (``LnCalls``) and holds the LayerNorm
+bf16 LayerNorm. The depthwise GLU kernels (phase 18) likewise, beside the
+plain ATen chain the conv module ran before them. Every path that counts
+its launches also counts the plain LayerNorm calls and the conv modules'
+``depthwise_glu`` calls on the card (``KernelCalls``) and holds those
 kernels' launches equal to them.
 Runs a small fp32 model on the GPU (kernels) and on the CPU (twins), for
 serving (phase 4) and for one optimizer step (phase 7). Serves the
@@ -960,54 +962,75 @@ def phase6():
 # train cell's ([64, 499, 1024])
 LN_SHAPES = ((64, 512, 1024), (64, 499, 1024))
 LN_KERNELS = ("layer_norm_fwd", "layer_norm_bwd_dx", "layer_norm_bwd_dgamma")
+DW_KERNELS = ("depthwise_glu_fwd", "depthwise_glu_bwd_dx",
+              "depthwise_glu_bwd_dw")
 
 
-class LnCalls:
-    """Counts the plain ``LayerNorm`` calls on the card from its creation
-    to ``stop``, apart from the kernels' own counter (``LAUNCHES``, cleared
-    here): ``LayerNorm.forward`` is wrapped, so every model built meanwhile
-    is seen. A call counts as one forward launch before it runs (a remat
-    replay that stops inside it has launched); an output that a gradient
-    reaches counts one ``layer_norm_bwd_dx`` launch, and one
-    ``layer_norm_bwd_dgamma`` where γ or β trains. ``ShardedLayerNorm``
-    keeps its own forward and is not counted."""
+class KernelCalls:
+    """Counts the plain ``LayerNorm`` calls and the conv modules'
+    ``depthwise_glu`` calls on the card from its creation to ``stop``,
+    apart from the kernels' own counters (``LAUNCHES``, cleared here):
+    ``LayerNorm.forward`` and the encoder's ``depthwise_glu`` are wrapped,
+    so every model built meanwhile is seen. A call counts as one forward
+    launch before it runs (a remat replay that stops inside it has
+    launched); an output that a gradient reaches counts one ``_bwd_dx``
+    launch, and one launch of the parameters' sum (``layer_norm_bwd_dgamma``,
+    ``depthwise_glu_bwd_dw``) where they train. ``ShardedLayerNorm`` keeps
+    its own forward and is not counted."""
 
     def __init__(self):
+        from speech_transcript_embeddings_torch.models import audio_encoder
         from speech_transcript_embeddings_torch.models import layers
+        from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
         from speech_transcript_embeddings_torch.ops import layer_norm as ln
-        self.calls = dict.fromkeys(LN_KERNELS, 0)
-        self._forward = forward = layers.LayerNorm.forward
-        calls = self.calls
+        self.calls = dict.fromkeys(LN_KERNELS + DW_KERNELS, 0)
+        self._forward = layers.LayerNorm.forward
+        self._depthwise_glu = audio_encoder.depthwise_glu
+        count = self._count
 
-        def counted(module, x):
-            if not x.is_cuda:
-                return forward(module, x)
-            calls["layer_norm_fwd"] += 1
-            y = forward(module, x)
-            if y.requires_grad:
-                affine = module.weight.requires_grad or \
-                    module.bias.requires_grad
+        def counted_ln(module, x):
+            return count(LN_KERNELS, lambda: self._forward(module, x), x,
+                         module.weight.requires_grad
+                         or module.bias.requires_grad)
 
-                def reached(_):
-                    calls["layer_norm_bwd_dx"] += 1
-                    calls["layer_norm_bwd_dgamma"] += affine
-                y.register_hook(reached)
-            return y
+        def counted_dw(x, weight):
+            return count(DW_KERNELS, lambda: self._depthwise_glu(x, weight),
+                         x, weight.requires_grad)
 
         ln.LAUNCHES.clear()
-        layers.LayerNorm.forward = counted
+        dg.LAUNCHES.clear()
+        layers.LayerNorm.forward = counted_ln
+        audio_encoder.depthwise_glu = counted_dw
+
+    def _count(self, kernels, run, x, params):
+        if not x.is_cuda:
+            return run()
+        fwd, dx, dparams = kernels
+        self.calls[fwd] += 1
+        y = run()
+        if y.requires_grad:
+            def reached(_):
+                self.calls[dx] += 1
+                self.calls[dparams] += params
+            y.register_hook(reached)
+        return y
 
     def stop(self, what):
-        """Unwraps the forward; raises unless the kernels launched as often
-        as the calls say, and at least once. → the launches by kernel."""
+        """Unwraps the calls; raises unless the kernels launched as often
+        as the calls say, and LayerNorm's at least once. → the launches by
+        kernel."""
+        from speech_transcript_embeddings_torch.models import audio_encoder
         from speech_transcript_embeddings_torch.models import layers
+        from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
         from speech_transcript_embeddings_torch.ops import layer_norm as ln
         layers.LayerNorm.forward = self._forward
-        launched = {k: ln.LAUNCHES[k] for k in LN_KERNELS}
+        audio_encoder.depthwise_glu = self._depthwise_glu
+        launched = {**{k: ln.LAUNCHES[k] for k in LN_KERNELS},
+                    **{k: dg.LAUNCHES[k] for k in DW_KERNELS}}
         if launched != self.calls or not launched["layer_norm_fwd"]:
-            raise AssertionError(f"{what}: LayerNorm kernels launched "
-                                 f"{launched}, plain LayerNorm calls want "
-                                 f"{self.calls}")
+            raise AssertionError(f"{what}: LayerNorm and depthwise GLU "
+                                 f"kernels launched {launched}, the calls "
+                                 f"want {self.calls}")
         return launched
 
 
@@ -1148,6 +1171,100 @@ def phase17():
     return out
 
 
+# phase 18: the depthwise GLU kernels at the conv module's bf16 activations
+# of the cells (C = 1024, K = 31): the embed cell's 10 s bucket (T = 512)
+# and the b64 train cell's (T = 499), and a rank's half width under tensor
+# parallel
+DW_SHAPES = ((64, 512, 1024), (64, 499, 1024), (64, 499, 512))
+
+
+def phase18():
+    """The depthwise GLU kernels (``ops/depthwise_glu.py``) at
+    ``DW_SHAPES`` in bf16, K = 31: the forward, the backward with an fp32
+    weight's gradient (dx, then dw from persistent partials) and the
+    backward of a frozen bf16 weight (dx alone), each held against the
+    plain version of the kernels' arithmetic within one bf16 step (dw
+    within 1e-4 of its largest) and timed (``queued_ms``) beside its bytes
+    bound and the plain ATen chain that the conv module ran before
+    (``depthwise_glu_chain`` and the depthwise norm's copy of its
+    transposed output; its backward by autograd), the yardstick. Prints
+    the kernels' ptxas report."""
+    import torch
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    log(18, "ptxas: " + "; ".join(_ptxas_report("depthwise_glu")))
+    out = {}
+    for shape in DW_SHAPES:
+        b, t, c = shape
+        k, bf = 31, torch.bfloat16
+        g = torch.Generator().manual_seed(sum(shape))
+        x = torch.randn(b, t, 2 * c, generator=g).to("cuda", bf)
+        w = (0.2 * torch.randn(c, 1, k, generator=g)).to("cuda")
+        wb = w.to(bf)
+        dy = torch.randn(b, t, c, generator=g).to("cuda", bf)
+        y, xc = dg._fwd(x, w)
+        dx, dw = dg._bwd(dy, xc, w, True, True)
+        dx_frozen = dg._bwd(dy, xc, wb, True, False)[0]
+        want = dg.depthwise_glu_reference(x, w)
+        want_dx, want_dw = dg.depthwise_glu_bwd_reference(dy, x, w)
+        want_dx_frozen = dg.depthwise_glu_bwd_reference(dy, x, wb)[0]
+        torch.cuda.synchronize()
+        err = {"y": _ln_err(y, want), "dx": _ln_err(dx, want_dx),
+               "dx_frozen": _ln_err(dx_frozen, want_dx_frozen),
+               "dw": ((dw - want_dw).abs().max()
+                      / want_dw.abs().max()).item()}
+        if max(err["y"], err["dx"], err["dx_frozen"]) > 2.0 or \
+                err["dw"] > 1e-4:
+            raise AssertionError(f"depthwise_glu at {shape}: {err} (bf16 "
+                                 "roundings; dw relative to the largest)")
+        # the chain and its autograd backward (the depthwise norm's copy of
+        # the transposed output included)
+        xr, wr = (v.detach().clone().requires_grad_() for v in (x, w))
+        chain = dg.depthwise_glu_chain(xr, wr).contiguous()
+        xf = x.detach().clone().requires_grad_()
+        chain_f = dg.depthwise_glu_chain(xf, wb).contiguous()
+        fwd = lambda: dg._fwd(x, w)
+        bwd = lambda: dg._bwd(dy, xc, w, True, True)
+        times = {
+            "fwd_ms": queued_ms(fwd),
+            "bwd_ms": queued_ms(bwd),
+            "bwd_frozen_ms": queued_ms(
+                lambda: dg._bwd(dy, xc, wb, True, False)),
+            "fwd_call_ms": cuda_ms(fwd), "bwd_call_ms": cuda_ms(bwd),
+            "plain_fwd_ms": queued_ms(
+                lambda: dg.depthwise_glu_chain(x, w).contiguous()),
+            "plain_bwd_ms": queued_ms(lambda: torch.autograd.grad(
+                chain, (xr, wr), dy, retain_graph=True)),
+            "plain_bwd_frozen_ms": queued_ms(lambda: torch.autograd.grad(
+                chain_f, (xf,), dy, retain_graph=True)),
+            "max_err": err}
+        # each input read once, each output written once: x, w, y forward;
+        # dy, x, w, dx, dw backward. Operations: the GLU (≈ 5 a channel and
+        # time) and 2 a tap in each sum
+        n = b * t * c
+        times["fwd_bound_ms"], times["fwd_bound_by"] = bound_ms(
+            (5 + 2 * k) * n, 6 * n + 4 * c * k, FP32_PEAK)
+        times["bwd_bound_ms"], times["bwd_bound_by"] = bound_ms(
+            (10 + 4 * k) * n, 10 * n + 8 * c * k, FP32_PEAK)
+        times["bwd_frozen_bound_ms"], _ = bound_ms(
+            (10 + 2 * k) * n, 10 * n + 2 * c * k, FP32_PEAK)
+        for d in ("fwd", "bwd", "bwd_frozen"):
+            times[f"{d}_share"] = times[f"{d}_bound_ms"] / times[f"{d}_ms"]
+        key = "x".join(map(str, shape))
+        out[key] = times
+        log(18, f"depthwise_glu {key} bf16, K {k}: fwd {times['fwd_ms']:.4f}"
+                f" ms (bound {times['fwd_bound_ms']:.4f}, "
+                f"{100 * times['fwd_share']:.1f}%; chain "
+                f"{times['plain_fwd_ms']:.4f}), bwd {times['bwd_ms']:.4f} "
+                f"(bound {times['bwd_bound_ms']:.4f}, "
+                f"{100 * times['bwd_share']:.1f}%; chain "
+                f"{times['plain_bwd_ms']:.4f}), frozen bwd "
+                f"{times['bwd_frozen_ms']:.4f} "
+                f"({100 * times['bwd_frozen_share']:.1f}%; chain "
+                f"{times['plain_bwd_frozen_ms']:.4f}); err {err}",
+            **{"shape": key, **times})
+    return out
+
+
 def _clip(seconds, seed):
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -1188,7 +1305,7 @@ def phase4():
     cpu, gpu = Embedder(cfg, cpu_model), Embedder(cfg, gpu_model)
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     fa.LAUNCHES.clear()           # counts of this fp32 path start at zero
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     errs = [float(np.abs(gpu.embed_texts(texts) - cpu.embed_texts(texts)).max())]
     for clips in batches:
         a, b = gpu.embed_audios(clips), cpu.embed_audios(clips)
@@ -1196,7 +1313,7 @@ def phase4():
             raise AssertionError("non-finite small-config embeddings")
         errs.append(float(np.abs(a - b).max()))
     launches = dict(fa.LAUNCHES)
-    ln_launched = ln_calls.stop("fp32 serving")
+    kernel_launched = kernel_calls.stop("fp32 serving")
     worst = max(errs)
     if worst > 1e-4:
         raise AssertionError(f"GPU (kernels) vs CPU (twins) embeddings differ "
@@ -1204,7 +1321,7 @@ def phase4():
     if set(launches) != {"flash_rel_fwd"} or launches["flash_rel_fwd"] < 6:
         raise AssertionError(f"fp32 serving launched {launches}: want only "
                              f"the CUDA-core kernel, twice per audio batch")
-    launches.update(ln_launched)
+    launches.update(kernel_launched)
     log(4, f"small f32 model (2 layers, audio 256/4 heads, text 128): GPU "
            f"kernels vs CPU twins max err {worst:.2e} (tol 1e-4) over texts "
            f"and buckets 41200/164080/491760; flash launches {launches}",
@@ -1463,7 +1580,7 @@ def _phase5(tmp):
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     try:
         status, body, lat["healthz"] = _request(url + "/healthz")
         if status != 200 or body["projection_dim"] != 768:
@@ -1506,7 +1623,7 @@ def _phase5(tmp):
                 "log_mel_normalize": fk.normalize_and_stack.launches,
                 "flash_rel_fwd_wgmma": fa.LAUNCHES["flash_rel_fwd_wgmma"],
                 "flash_rel_fwd": fa.LAUNCHES["flash_rel_fwd"],
-                **ln_calls.stop("serving")}
+                **kernel_calls.stop("serving")}
     by_frames = dict(fk.log_mel.launches_by_frames)
     layers = cfg.model.audio.num_layers
     if launches["flash_rel_fwd_wgmma"] != layers * audio_forwards or \
@@ -1598,7 +1715,7 @@ def _phase5_int8(path, texts, batch16, text_bf16, audio_bf16, bf16, layers):
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
     quant.int8_matmul.launches = 0
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     try:
         for tag in ("cold", "warm"):
             _, body, lat[f"embed_text_4_{tag}"] = _request(
@@ -1622,7 +1739,7 @@ def _phase5_int8(path, texts, batch16, text_bf16, audio_bf16, bf16, layers):
             "int8_products": 2 * (per_path["text"] + per_path["audio"])}
     if launches != want:
         raise AssertionError(f"int8 serving launched {launches}, want {want}")
-    launches.update(ln_calls.stop("int8 serving"))
+    launches.update(kernel_calls.stop("int8 serving"))
     cos_audio = np.sum(audio_embs * audio_bf16, axis=1)
     cos_text = np.sum(text_embs * text_bf16, axis=1)
     res = _breakdown(service.embedder, {"16 clips of 4.7 s": (
@@ -1774,8 +1891,8 @@ def _step_run(cfg, model, batches, device, dropout=False):
     """One optimizer step (accumulation 2) of ``model``'s weights on
     ``device`` from two host batches: each micro-batch's gradient before
     any update, ``train_step``'s metrics, the trainable weights after, the
-    flash and LayerNorm launches (the latter held to ``LnCalls`` on the
-    card). With ``dropout``, dropout and SpecAugment draw from the run's
+    flash, LayerNorm and depthwise GLU launches (the latter two held to
+    ``KernelCalls`` on the card). With ``dropout``, dropout and SpecAugment draw from the run's
     stream, restarted for each pass. Under a process group (phases
     11, 12) the model sits on ``cfg``'s mesh: each rank takes its data
     index's rows of every batch, and the gradients and the loss are
@@ -1793,7 +1910,7 @@ def _step_run(cfg, model, batches, device, dropout=False):
     from speech_transcript_embeddings_torch.training import loop, losses
     from speech_transcript_embeddings_torch.training import train_step as ts
     fa.LAUNCHES.clear()       # counts of this path start at zero
-    ln_calls = LnCalls() if str(device).startswith("cuda") else None
+    kernel_calls = KernelCalls() if str(device).startswith("cuda") else None
     mesh = mesh_lib.make_mesh(cfg) if collectives.initialized() \
         else mesh_lib.Mesh()
     with torch.device(device):
@@ -1831,8 +1948,8 @@ def _step_run(cfg, model, batches, device, dropout=False):
         if not torch.equal(p, frozen0[k]):
             raise AssertionError(f"frozen {k} changed on {device}")
     launches = {k: n for k, n in fa.LAUNCHES.items() if n}
-    if ln_calls:
-        launches.update(ln_calls.stop(f"one step on {device}"))
+    if kernel_calls:
+        launches.update(kernel_calls.stop(f"one step on {device}"))
     return (metrics, {k: p.detach().cpu() for k, p in
                       state.trainable.items()}, grads, launches)
 
@@ -1957,7 +2074,7 @@ def phase8():
     trainable split moved, and that every micro-step and every forward ran
     the kernels (K4 24 times a micro-step, K3 24 times a forward with no
     remat replay, the log-mel kernels once per batch, the LayerNorm kernels
-    as ``LnCalls`` counts the calls). Then scores the final_model with ``scripts/torch_int8_quality_eval.py`` (``_int8_eval``,
+    as ``KernelCalls`` counts the calls). Then scores the final_model with ``scripts/torch_int8_quality_eval.py`` (``_int8_eval``,
     a path of its own) while the run's directory still holds it. → (the
     training path's launches, warm clips/s, the int8 eval's launches)."""
     import numpy as np
@@ -1984,7 +2101,7 @@ def phase8():
         fk.log_mel.launches_by_frames.clear()
         fk.normalize_and_stack.launches = 0
         fa.LAUNCHES.clear()
-        ln_calls = LnCalls()
+        kernel_calls = KernelCalls()
         t0 = time.perf_counter()
         res = cli.main(argv)
         torch.cuda.synchronize()
@@ -1992,7 +2109,7 @@ def phase8():
         launches = {"log_mel": fk.log_mel.launches,
                     "log_mel_normalize": fk.normalize_and_stack.launches,
                     **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
-        ln_launched = ln_calls.stop("preset=retrieval training")
+        kernel_launched = kernel_calls.stop("preset=retrieval training")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         cfg, state = res["cfg"], res["state"]
         ep = res["epochs"][0]
@@ -2012,7 +2129,7 @@ def phase8():
                 f"launches {launches} != {want} for {micro} micro-steps, "
                 f"{n_eval} eval, {res['test_batches']} test and "
                 f"{res['retrieval_batches']} retrieval batches")
-        launches.update(ln_launched)
+        launches.update(kernel_launched)
         if (res["n_params"], res["n_trainable"]) != (N_PARAMS, N_TRAINABLE):
             raise AssertionError(f"{res['n_params']} params, "
                                  f"{res['n_trainable']} trainable")
@@ -2134,7 +2251,7 @@ def phase9():
         fk.log_mel.launches_by_frames.clear()
         fk.normalize_and_stack.launches = 0
         fa.LAUNCHES.clear()
-        ln_calls = LnCalls()
+        kernel_calls = KernelCalls()
         t0 = time.perf_counter()
         first = cli.main(argv + [f"train.fault_inject_preempt_at={PREEMPT_AT}"])
         torch.cuda.synchronize()
@@ -2159,7 +2276,7 @@ def phase9():
         launches = {"log_mel": fk.log_mel.launches,
                     "log_mel_normalize": fk.normalize_and_stack.launches,
                     **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
-        ln_launched = ln_calls.stop("preset=flagship training")
+        kernel_launched = kernel_calls.stop("preset=flagship training")
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         cfg, state = res["cfg"], res["state"]
         ep = res["epochs"][0]
@@ -2181,7 +2298,7 @@ def phase9():
                 f"launches {launches} != {want} for {micro} micro-steps, "
                 f"{ep['eval_batches']} eval, {res['test_batches']} test and "
                 f"{res['retrieval_batches']} retrieval batches")
-        launches.update(ln_launched)
+        launches.update(kernel_launched)
         if (res["n_params"], res["n_trainable"]) != (FLAGSHIP_PARAMS,
                                                      FLAGSHIP_TRAINABLE):
             raise AssertionError(f"{res['n_params']} params, "
@@ -2530,7 +2647,7 @@ def phase10():
             fk.log_mel.launches = 0
             fa.LAUNCHES.clear()
             quant.int8_matmul.launches = 0
-            ln_calls = LnCalls()
+            kernel_calls = KernelCalls()
             t0 = time.perf_counter()
             res = infer.main(["batch", "--checkpoint", dst, "--num-samples",
                               "32", "--device", "cuda", "--dataset",
@@ -2540,7 +2657,7 @@ def phase10():
             counts = {"log_mel": fk.log_mel.launches,
                       "int8_products": quant.int8_matmul.launches,
                       **{k: v for k, v in fa.LAUNCHES.items() if v},
-                      **ln_calls.stop(f"infer {tag}")}
+                      **kernel_calls.stop(f"infer {tag}")}
             embs = np.concatenate([res["text_embeddings"],
                                    res["audio_embeddings"]])
             norms = np.linalg.norm(embs, axis=1)
@@ -2572,7 +2689,7 @@ def phase10():
         fk.log_mel.launches_by_frames.clear()
         fk.normalize_and_stack.launches = 0
         fa.LAUNCHES.clear()
-        ln_calls = LnCalls()
+        kernel_calls = KernelCalls()
         t0 = time.perf_counter()
         res = cli.main(argv)
         torch.cuda.synchronize()
@@ -2580,7 +2697,7 @@ def phase10():
         launches = {"log_mel": fk.log_mel.launches,
                     "log_mel_normalize": fk.normalize_and_stack.launches,
                     **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
-        ln_launched = ln_calls.stop("training from the converted checkpoint")
+        kernel_launched = kernel_calls.stop("training from the converted checkpoint")
         losses = [st["loss"] for st in res["step_log"]]
         layers = flagship_model_config().audio.num_layers
         want = {"log_mel": 2, "log_mel_normalize": 2,
@@ -2593,7 +2710,7 @@ def phase10():
             raise AssertionError(f"two micro-steps from the converted "
                                  f"checkpoint: {res.get('preempted')}, "
                                  f"losses {losses}, launches {launches}")
-        launches.update(ln_launched)
+        launches.update(kernel_launched)
         start = ckpt.load_stored_state(dst)
         after = ckpt.load_stored_state(os.path.join(tmp, "run", "latest"))
         frozen = [k for k, v in after.items() if v.dtype == torch.bfloat16]
@@ -2870,7 +2987,7 @@ def _dp_worker_b(out):
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     first = cli.main(argv + [f"train.fault_inject_preempt_at={DP_FLAG_AT}"])
     if first.get("preempted") != {"epoch": 1, "batches_done": DP_FLAG_AT}:
         raise AssertionError(f"preemption: {first.get('preempted')}")
@@ -2882,7 +2999,7 @@ def _dp_worker_b(out):
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
                 **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
-    ln_launched = ln_calls.stop("data-parallel training")
+    kernel_launched = kernel_calls.stop("data-parallel training")
     cfg, state, ep = res["cfg"], res["state"], res["epochs"][0]
     if ep["skipped_batches"] != DP_FLAG_AT:
         raise AssertionError(f"no mid-epoch resume: {ep}")
@@ -2896,7 +3013,7 @@ def _dp_worker_b(out):
             "log_mel": forwards, "log_mel_normalize": forwards}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
-    launches.update(ln_launched)
+    launches.update(kernel_launched)
     losses = [s["loss"] for s in first["step_log"] + res["step_log"]]
     if len(losses) != micro or not np.isfinite(losses).all():
         raise AssertionError(f"micro-step losses {losses}")
@@ -3290,10 +3407,10 @@ def _tp_worker_c(out):
     fk.log_mel.launches = 0
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     res = cli.main(["device=cuda", "mesh.num_model=2"] + _tp_argv(run))
     torch.cuda.synchronize()
-    ln_launched = ln_calls.stop("(c) tensor-parallel training")
+    kernel_launched = kernel_calls.stop("(c) tensor-parallel training")
     mesh = res["state"].mesh
     text = open(os.path.join(run, "training.log")).read() \
         if mesh.rank == 0 else ""
@@ -3308,7 +3425,7 @@ def _tp_worker_c(out):
             "launches": {"log_mel": fk.log_mel.launches,
                          "log_mel_normalize": fk.normalize_and_stack.launches,
                          **{k: fa.LAUNCHES[k] for k in FLASH_KERNELS},
-                         **ln_launched}}
+                         **kernel_launched}}
 
 
 def _tp_worker_b(out, ref):
@@ -3339,7 +3456,7 @@ def _tp_worker_b(out, ref):
     fk.log_mel.launches_by_frames.clear()
     fk.normalize_and_stack.launches = 0
     fa.LAUNCHES.clear()
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     torch.cuda.reset_peak_memory_stats()
     res = cli.main(["device=cuda", "mesh.num_model=2"] + _tp_argv(run))
     torch.cuda.synchronize()
@@ -3347,7 +3464,7 @@ def _tp_worker_b(out, ref):
     launches = {"log_mel": fk.log_mel.launches,
                 "log_mel_normalize": fk.normalize_and_stack.launches,
                 **{name: fa.LAUNCHES[name] for name in FLASH_KERNELS}}
-    ln_launched = ln_calls.stop(f"(b) tensor-parallel training, rank {rank}")
+    kernel_launched = kernel_calls.stop(f"(b) tensor-parallel training, rank {rank}")
     cfg, state, ep = res["cfg"], res["state"], res["epochs"][0]
     mesh = state.mesh
     # the whole model's counts, from the one-process model on meta
@@ -3372,7 +3489,7 @@ def _tp_worker_b(out, ref):
             "log_mel": forwards, "log_mel_normalize": forwards}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
-    launches.update(ln_launched)
+    launches.update(kernel_launched)
     shapes = state.model.full_shapes()
     split, vocab_rows = 0, None
     for k, p in state.model.named_parameters():
@@ -3613,13 +3730,13 @@ def _int8_eval(checkpoint):
     with open(os.path.join(checkpoint, "metadata.json")) as f:
         dim = json.load(f)["config"]["model"]["heads"]["projection_dim"]
     ub.reset_launches()
-    ln_calls = LnCalls()
+    kernel_calls = KernelCalls()
     t0 = time.perf_counter()
     res = tint8.main(["--checkpoint", checkpoint, "--limit", str(INT8_POOL),
                       "--device", "cuda"])
     secs = time.perf_counter() - t0
     launches = ub.launches()
-    ln_calls.stop("the int8 eval")
+    kernel_calls.stop("the int8 eval")
     frames = ub.log_mel_frames()
     with open(os.path.join(os.path.dirname(checkpoint),
                            "int8_quality_eval.json")) as f:
@@ -3669,7 +3786,7 @@ def _phase13_proxy():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         ub.reset_launches()
-        ln_calls = LnCalls()
+        kernel_calls = KernelCalls()
         t0 = time.perf_counter()
         res = tproxy.main([os.path.join(tmp, "proxy"), "--preset-retrieval",
                            "--samples", str(PROXY_CLIPS), "--acc", "1",
@@ -3678,7 +3795,7 @@ def _phase13_proxy():
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = ub.launches()
-        ln_launched = ln_calls.stop("the quality proxy")
+        kernel_launched = kernel_calls.stop("the quality proxy")
         frames = ub.log_mel_frames()
         with open(os.path.join(tmp, "proxy", "proxy_summary.json")) as f:
             summary = json.load(f)
@@ -3691,7 +3808,7 @@ def _phase13_proxy():
     want = {"flash_rel_bwd_wgmma": layers * micro,
             "flash_rel_fwd_wgmma": layers * (forwards + micro),
             "flash_rel_fwd": 0, "flash_rel_bwd": 0, "log_mel": forwards,
-            "log_mel_normalize": forwards, "int8_matmul": 0, **ln_launched}
+            "log_mel_normalize": forwards, "int8_matmul": 0, **kernel_launched}
     if launches != want:
         raise AssertionError(
             f"launches {launches} != {want} for {micro} micro-steps, "
@@ -4120,6 +4237,7 @@ def main():
     serve, serve_int8 = timed(5, phase5)
     bwd_err, bwd_abs_err, bwd_times = timed(6, phase6)
     ln_times = timed(17, phase17)
+    dw_times = timed(18, phase18)
     train_fp32 = timed(7, phase7)
     train, warm_clips_per_s, int8_eval = timed(8, phase8)
     flagship, flagship_step, _ = timed(9, phase9)
@@ -4236,6 +4354,29 @@ def main():
         "ms": None, "ms_inside": "layer_norm_bwd_dx",
         "bwd_ms_minus_frozen_bwd_ms": tm["bwd_ms"] - tm["bwd_frozen_ms"],
         "at": f"bf16 [{ln_at.replace('x', ', ')}], fp32 γ, β"})
+    # the depthwise GLU kernels replace no TPU kernel: every time at the
+    # embed cell's [64, 512, 1024] bf16; the weight gradient's sum is
+    # inside the backward's ms, the frozen backward is dx alone
+    dw_at = "x".join(map(str, DW_SHAPES[0]))
+    tm = dw_times[dw_at]
+    for name, d in (("depthwise_glu_fwd", "fwd"),
+                    ("depthwise_glu_bwd_dx", "bwd"),
+                    ("depthwise_glu_bwd_dw", None)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"{REPO}/csrc/depthwise_glu.cu", "replaces": None,
+            "max_err_bf16_steps": tm["max_err"],
+            **({"ms": tm[f"{d}_ms"],
+                "call_ms_back_to_back": tm[f"{d}_call_ms"],
+                "plain_ms": tm[f"plain_{d}_ms"],
+                "bound_ms": tm[f"{d}_bound_ms"],
+                "bound_by": tm[f"{d}_bound_by"], "library_ms": None,
+                "ms_by_shape": {s_: v[f"{d}_ms"]
+                                for s_, v in dw_times.items()}}
+               if d else {"ms": None, "ms_inside": "depthwise_glu_bwd_dx",
+                          "bwd_ms_minus_frozen_bwd_ms":
+                              tm["bwd_ms"] - tm["bwd_frozen_ms"]}),
+            "at": f"bf16 [{dw_at.replace('x', ', ')}], K 31, fp32 weight"})
     for k in kernels:
         k["launches_by_path"] = by_path[k["name"]]
         main_path = ("serve", "serve_int8", "train", "flagship_train",

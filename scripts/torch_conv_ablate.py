@@ -16,7 +16,8 @@ JAX script writes it, in plain PyTorch:
 
 LayerNorm as JAX's ``ln``: fp32 statistics, eps 1e-5, no affine, the
 result in the input's dtype; the depthwise convolution as the port's
-``ConvModule`` runs it (``F.conv1d`` over the ``[B, H, T]`` view); the two
+``ConvModule`` runs it on the CPU (``F.conv1d`` over the ``[B, H, T]``
+view; on the card the module runs the depthwise GLU kernels); the two
 products ``torch.matmul`` (JAX computes them outside any Pallas kernel).
 Not numerically meaningful, timing only. Prints each variant's host ms
 (JAX's ``timeit``: the mean of ``--iters`` calls after 3, the window ending
@@ -77,7 +78,7 @@ def ln(v):
 
 def depthwise(v, dw):
     """Causal depthwise conv of ``v [B, T, H]``, ``dw [K, 1, H]`` cast to
-    v's dtype, as ``ConvModule`` computes it."""
+    v's dtype, as ``ConvModule`` computes it on the CPU."""
     import torch.nn.functional as F
     k, h = dw.shape[0], dw.shape[2]
     out = F.conv1d(F.pad(v.transpose(1, 2), (k - 1, 0)),

@@ -10,8 +10,9 @@ At ``[B, T, H] = [32, 499, 1024]``, K = 31, bf16 (inputs from
 fp32, the cotangent):
 
 * ``grouped``: ``F.conv1d`` over the ``[B, H, T]`` view, left-padded by
-  K − 1, ``groups=H``, as the port's ``ConvModule`` computes it
-  (ATen's depthwise kernel on the card);
+  K − 1, ``groups=H``, as the port's ``ConvModule`` computes it on the
+  CPU (``ops/depthwise_glu.py``'s chain; ATen's depthwise kernel on the
+  card, where the module runs the depthwise GLU kernels);
 * ``shift``: the K-term shift-and-scale sum, each product rounded to bf16,
   the sum in fp32, then rounded to bf16 (JAX's ``conv_shift``).
 

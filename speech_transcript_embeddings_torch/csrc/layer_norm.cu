@@ -38,48 +38,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vec8.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using ste::bf16;
+using ste::kVec;
+using ste::load8;
+using ste::store8;
 
-constexpr int kVec = 8;            // elements a lane moves at once (16 B of bf16)
 constexpr int kFwdVecs = 4;        // vectors a lane holds in the forward
 constexpr int kBwdVecs = 2;        // and in the backward (beside 2 accumulators)
 constexpr int kBlockWarps = 8;
 constexpr int kMaxWidth = 4096;
 constexpr int kBwdBlocksPerSm = 2;
 constexpr int kSumRows = 16;       // row slices of the partial sum kernel
-
-__device__ __forceinline__ void load8(const bf16* p, float* f) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const float* p, float* f) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(bf16* p, const float* f) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* f) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -42,7 +42,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -50,6 +49,9 @@ from speech_transcript_embeddings_torch.config import AudioEncoderConfig
 from speech_transcript_embeddings_torch.models.layers import (
     Dense, LayerNorm, column_dense, dropout, layer_norm, masked_probs,
     replayable, row_dense,
+)
+from speech_transcript_embeddings_torch.ops.depthwise_glu import (
+    depthwise_glu,
 )
 from speech_transcript_embeddings_torch.ops.flash_attention import (
     flash_attention,
@@ -208,7 +210,9 @@ class RelPositionAttention(nn.Module):
 class ConvModule(nn.Module):
     """Conformer convolution block with a causal depthwise conv
     (``depthwise_kernel`` is ``[H, 1, K]``, Conv1d layout; this rank's
-    channels under tensor parallel)."""
+    channels under tensor parallel). The GLU and the depthwise conv are
+    ``ops/depthwise_glu.py``: its kernels on the card, the plain chain on
+    the CPU."""
 
     def __init__(self, cfg: AudioEncoderConfig, dtype: torch.dtype,
                  param_dtype: Optional[torch.dtype] = None,
@@ -216,7 +220,6 @@ class ConvModule(nn.Module):
         super().__init__()
         c = self.cfg = cfg
         h = c.hidden_size
-        self.dtype = dtype
         self.axis = axis
         kw = dict(use_bias=False, dtype=dtype, param_dtype=param_dtype)
         self.norm = LayerNorm(h, c.layer_norm_eps, dtype)
@@ -233,11 +236,8 @@ class ConvModule(nn.Module):
         x = self.norm(x)
         if mask is not None:
             x = x * mask[..., None].to(x.dtype)
-        a, g = self.pointwise1(copy_to_model(x, self.axis)).chunk(2, dim=-1)
-        x = (a * torch.sigmoid(g)).transpose(1, 2)            # [B, H, T]
-        x = F.conv1d(F.pad(x, (c.conv_kernel_size - 1, 0)),
-                     self.depthwise_kernel.to(self.dtype),
-                     groups=self.depthwise_kernel.shape[0]).transpose(1, 2)
+        x = depthwise_glu(self.pointwise1(copy_to_model(x, self.axis)),
+                          self.depthwise_kernel)              # [B, T, H]
         h = swish(self.depthwise_norm(x))
         return dropout(self.pointwise2(h), c.conv_dropout, generator)
 

@@ -41,6 +41,9 @@ _SIGNATURES = {
     "ste_layer_norm_fwd": [_P] * 6 + [_I, _I, _F, _I, _I, _I, _I, _P],
     "ste_layer_norm_bwd": [_P] * 9 + [_I] * 7 + [_P],
     "ste_layer_norm_bwd_blocks": [_I, _I, _I, _P],
+    "ste_depthwise_glu_fwd": [_P] * 3 + [_I] * 8 + [_P],
+    "ste_depthwise_glu_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    "ste_depthwise_glu_blocks": [_I] * 4 + [_P] * 2,
 }
 
 
@@ -115,6 +118,14 @@ def library() -> ctypes.CDLL:
 def check(code: int, name: str) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def aligned(x):
+    """``x`` contiguous with a 16-byte aligned start (the kernels move 16
+    bytes at a time)."""
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def launch_args(t):

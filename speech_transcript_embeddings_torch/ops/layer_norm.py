@@ -14,8 +14,7 @@ wanted; it replaces no TPU kernel (JAX leaves LayerNorm to XLA).
 CPU tensors take ``layer_norm_reference``, the chain itself, bit for bit.
 CUDA tensors launch the kernels or raise: rows of a width that is a
 multiple of 8 up to ``MAX_WIDTH``, in bf16 or fp32, γ and β of one dtype.
-An input whose last dimension is not contiguous (the conformer's depthwise
-norm reads the conv's transposed output) is copied once, in its own dtype.
+An input that is not contiguous is copied once, in its own dtype.
 ``LAUNCHES`` counts each kernel's launches.
 """
 
@@ -98,18 +97,10 @@ def _check(x, weight, bias, dtype):
                          f"{bias.device}")
 
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """``x`` contiguous with a 16-byte aligned start (the kernels move 16
-    bytes at a time)."""
-    if not x.is_contiguous():
-        x = x.contiguous()
-    return x if x.data_ptr() % 16 == 0 else x.clone()
-
-
 def _fwd(x, weight, bias, eps: float, dtype: torch.dtype):
     """→ (y in ``dtype``, the input as the kernel read it, μ, rstd)."""
     _check(x, weight, bias, dtype)
-    x, weight, bias = _aligned(x), _aligned(weight), _aligned(bias)
+    x, weight, bias = (_build.aligned(t) for t in (x, weight, bias))
     n = x.shape[-1]
     rows = x.numel() // n
     y = torch.empty(x.shape, dtype=dtype, device=x.device)
@@ -143,7 +134,7 @@ def _bwd(dy, x, weight, mean, rstd, need_dx: bool, need_affine: bool
     ``x`` as ``_fwd`` returned it."""
     n = x.shape[-1]
     rows = x.numel() // n
-    dy = _aligned(dy)
+    dy = _build.aligned(dy)
     dx = torch.empty_like(x) if need_dx else None
     dgamma = dbeta = part = None
     if need_affine:       # every column is written (a sum over no row: 0)
@@ -187,8 +178,8 @@ class _LayerNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, weight, mean, rstd = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx, dgamma, dbeta = _bwd(dy, x, _aligned(weight), mean, rstd, need_x,
-                                 need_w or need_b)
+        dx, dgamma, dbeta = _bwd(dy, x, _build.aligned(weight), mean, rstd,
+                                 need_x, need_w or need_b)
         cast = lambda g, need: g.to(weight.dtype) if need else None
         return dx, cast(dgamma, need_w), cast(dbeta, need_b), None, None
 

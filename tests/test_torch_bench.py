@@ -287,14 +287,18 @@ def test_depthwise_weight_gradient_counts_as_its_forward():
     assert fwd == 2 * 2 * h * 24 * k and both == 3 * fwd
 
 
-@pytest.mark.parametrize("kernel", ["layer_norm_fwd", "flash_rel_fwd"])
+@pytest.mark.parametrize("kernel", ["layer_norm_fwd", "depthwise_glu_fwd",
+                                    "flash_rel_fwd"])
 def test_count_flops_refuses_only_a_launch_that_hides_products(kernel):
-    """The launch counters list the LayerNorm kernels, which the card
-    runs whatever the config says; they compute no products, so a count
-    that launches them stands, while a flash launch raises."""
+    """The launch counters list the LayerNorm and depthwise GLU kernels,
+    which the card runs whatever the config says; they compute no matrix
+    products, so a count that launches them stands, while a flash launch
+    raises."""
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
     from speech_transcript_embeddings_torch.ops import flash_attention as fa
     from speech_transcript_embeddings_torch.ops import layer_norm as ln
-    counter = ln.LAUNCHES if kernel.startswith("layer_norm") else fa.LAUNCHES
+    counter = {"layer_norm_fwd": ln.LAUNCHES, "depthwise_glu_fwd":
+               dg.LAUNCHES, "flash_rel_fwd": fa.LAUNCHES}[kernel]
     ub.reset_launches()
     assert ub.launches()[kernel] == 0
 
@@ -304,7 +308,7 @@ def test_count_flops_refuses_only_a_launch_that_hides_products(kernel):
 
     a, b = torch.ones(3, 4), torch.ones(4, 5)
     try:
-        if counter is ln.LAUNCHES:
+        if counter is not fa.LAUNCHES:
             assert ub.count_flops(step, a, b) == 2 * 3 * 4 * 5
             assert ub.launches()[kernel] == 1
         else:

@@ -455,3 +455,221 @@ def test_layer_norm_launches_count_every_plain_layer_norm(cuda):
     names = [e.name for e in prof.events()]
     assert not [n_ for n_ in names if "vectorized_layer_norm" in n_
                 or "GammaBeta" in n_ or "layer_norm_grad" in n_]
+
+
+# ---- depthwise GLU (ops/depthwise_glu.py, csrc/depthwise_glu.cu) -----------
+
+# (B, T, C): the b64 train cell's and the embed cell's 5 s bucket at full
+# width, a rank's half width under tensor parallel, C off the 32-channel
+# slice with T off every strip, and T under K
+DW_SHAPES = {"b64_t499_c1024": (64, 499, 1024),
+             "b64_t256_c1024": (64, 256, 1024),
+             "tp_b64_t499_c512": (64, 499, 512), "b3_t37_c48": (3, 37, 48),
+             "b2_t7_c64": (2, 7, 64)}
+
+
+def _dw_inputs(cuda, shape, k, dtype, train, seed):
+    """x [B, T, 2C] (requires grad), the weight [C, 1, K]: fp32 with its
+    gradient, or bf16 frozen as ``create_train_state`` keeps it; dy."""
+    b, t, c = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, t, 2 * c, generator=g).to(cuda, dtype)
+    w = (0.2 * torch.randn(c, 1, k, generator=g)).to(cuda)
+    if not train:
+        w = w.to(BF16)
+    dy = torch.randn(b, t, c, generator=g).to(cuda, dtype)
+    return x.requires_grad_(), w.requires_grad_(train), dy
+
+
+def _dw_close(got, want, what):
+    """Within one rounding of the dtype (bf16: 2⁻⁷ of the value; fp32: sums
+    in another order), on a floor of 1e-5 of the largest."""
+    rtol = 2 ** -7 if got.dtype == BF16 else 1e-5
+    atol = 1e-5 * want.float().abs().max().item()
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=what)
+
+
+def _dw_grad_close(got, want):
+    """The weight gradient, a sum over every batch row and time: within
+    1e-4 of its largest (in bf16 for a bf16 weight: one rounding more)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = 2 ** -7 if got.dtype == BF16 else 1e-4
+    scale = want.float().abs().max()
+    assert ((got.float() - want.float()).abs().max() / scale).item() <= tol
+
+
+@pytest.mark.parametrize("k", [31, 5])
+@pytest.mark.parametrize("train", [True, False],
+                         ids=["fp32_weight", "frozen_bf16_weight"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", list(DW_SHAPES))
+def test_depthwise_glu_kernels_match_plain(cuda, case, dtype, train, k):
+    """Forward and backward through ``depthwise_glu`` against the plain
+    versions of the kernels' arithmetic, and one launch of each kernel the
+    call needs."""
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    x, w, dy = _dw_inputs(cuda, DW_SHAPES[case], k, dtype, train, k)
+    before = dict(dg.LAUNCHES)
+    y = dg.depthwise_glu(x, w)
+    y.backward(dy)
+    grown = {n: v - before.get(n, 0) for n, v in dg.LAUNCHES.items()
+             if v != before.get(n, 0)}
+    want_launches = {"depthwise_glu_fwd": 1, "depthwise_glu_bwd_dx": 1}
+    if train:
+        want_launches["depthwise_glu_bwd_dw"] = 1
+    assert grown == want_launches
+    want = dg.depthwise_glu_reference(x.detach(), w.detach())
+    want_dx, want_dw = dg.depthwise_glu_bwd_reference(dy, x.detach(),
+                                                      w.detach())
+    torch.cuda.synchronize()
+    assert y.is_contiguous() and y.data_ptr() % 16 == 0
+    _dw_close(y, want, "y")
+    _dw_close(x.grad, want_dx, "dx")
+    if train:
+        _dw_grad_close(w.grad, want_dw)
+    else:
+        assert w.grad is None
+
+
+def test_depthwise_glu_backward_is_deterministic(cuda):
+    """dx and dw (persistent partials summed in a fixed order, no atomics)
+    give the same bits launch after launch; so does the forward."""
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    x, w, dy = _dw_inputs(cuda, (64, 499, 1024), 31, BF16, True, 16)
+    x, w = x.detach(), w.detach()
+    y, xc = dg._fwd(x, w)
+    first = dg._bwd(dy, xc, w, True, True)
+    second = dg._bwd(dy, xc, w, True, True)
+    again = dg._fwd(x, w)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1],
+                                                            second[1])
+    assert torch.equal(y, again)
+
+
+def test_depthwise_glu_weight_grad_without_input_grad(cuda):
+    """A weight that trains over an input that needs no gradient: the
+    backward kernel writes dw's partials and no dx, and their sum."""
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    x, w, dy = _dw_inputs(cuda, (4, 300, 256), 31, BF16, True, 17)
+    x.requires_grad_(False)
+    before = dict(dg.LAUNCHES)
+    dg.depthwise_glu(x, w).backward(dy)
+    torch.cuda.synchronize()
+    assert {n: v - before.get(n, 0) for n, v in dg.LAUNCHES.items()} == {
+        "depthwise_glu_fwd": 1, "depthwise_glu_bwd_dx": 1,
+        "depthwise_glu_bwd_dw": 1}
+    _dw_grad_close(w.grad,
+                   dg.depthwise_glu_bwd_reference(dy, x, w.detach())[1])
+
+
+GUARD = 4096
+
+
+def _guarded(shape, dtype, device):
+    """A view of ``shape`` inside a buffer of a sentinel pattern, GUARD
+    bytes of it on each side: → (view, check), check() failing on a
+    changed guard byte."""
+    n = torch.Size(shape).numel() * torch.empty((), dtype=dtype).element_size()
+    pattern = ((torch.arange(2 * GUARD + n, device=device) * 151 + 89)
+               % 256).to(torch.uint8)
+    raw = pattern.clone()
+
+    def check(name):
+        bad = raw != pattern
+        bad[GUARD:GUARD + n] = False
+        assert not bad.any(), f"{name}: {int(bad.sum())} guard bytes changed"
+    return raw[GUARD:GUARD + n].view(dtype).view(shape), check
+
+
+@pytest.mark.parametrize("case", ["b64_t499_c1024", "b3_t37_c48"])
+def test_depthwise_glu_kernels_write_only_their_outputs(cuda, case):
+    """The raw entry points with y, dx, the partials and dw each a view
+    inside guard bands: every output byte written, no guard byte, no input
+    changed."""
+    from speech_transcript_embeddings_torch.ops import _build
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    b, t, c = DW_SHAPES[case]
+    x, w, dy = _dw_inputs(cuda, (b, t, c), 31, BF16, True, 18)
+    x, w = x.detach(), w.detach()
+    inputs = [(v, v.clone()) for v in (x, w, dy)]
+    lib, (device, stream) = _build.library(), _build.launch_args(x)
+    y, y_ok = _guarded((b, t, c), BF16, cuda)
+    fwd_blocks, blocks = dg._blocks(b, t, c, device)
+    dx, dx_ok = _guarded((b, t, 2 * c), BF16, cuda)
+    part, part_ok = _guarded((blocks, dg.MAX_TAPS, c), F32, cuda)
+    dw, dw_ok = _guarded((c, 1, 31), F32, cuda)
+    _build.check(lib.ste_depthwise_glu_fwd(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), b, t, c, 31, fwd_blocks, 1,
+        0, device, stream), "fwd")
+    _build.check(lib.ste_depthwise_glu_bwd(
+        dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        part.data_ptr(), dw.data_ptr(), b, t, c, 31, blocks, 1, 0, device,
+        stream), "bwd")
+    torch.cuda.synchronize()
+    for check, name in ((y_ok, "y"), (dx_ok, "dx"), (part_ok, "part"),
+                        (dw_ok, "dw")):
+        check(name)
+    for v, before in inputs:
+        assert torch.equal(v, before)
+    want_dx, want_dw = dg.depthwise_glu_bwd_reference(dy, x, w)
+    _dw_close(y, dg.depthwise_glu_reference(x, w), "y")
+    _dw_close(dx, want_dx, "dx")
+    _dw_grad_close(dw, want_dw)
+
+
+@pytest.mark.parametrize("what", ["fp16", "c12", "k32", "weight_on_cpu"])
+def test_depthwise_glu_kernel_refuses_what_it_does_not_take(cuda, what):
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    c, k, dtype = (12 if what == "c12" else 16), (32 if what == "k32" else
+                                                  31), F32
+    if what == "fp16":
+        dtype = torch.float16
+    x = torch.zeros(2, 9, 2 * c, device=cuda, dtype=dtype)
+    w = torch.zeros(c, 1, k, device="cpu" if what == "weight_on_cpu"
+                    else cuda)
+    with pytest.raises(ValueError, match="depthwise_glu kernel"):
+        dg.depthwise_glu(x, w)
+
+
+def test_depthwise_glu_launches_count_every_conv_module(cuda):
+    """A small bf16 model's train forward and backward on the card: one
+    forward launch for each conv module, one backward for each conv
+    module whose output took a gradient, none of ATen's depthwise
+    convolution."""
+    from speech_transcript_embeddings_torch.config import tiny_model_config
+    from speech_transcript_embeddings_torch.models import audio_encoder as ae
+    from speech_transcript_embeddings_torch.models.dual_encoder import (
+        init_model,
+    )
+    from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+    import dataclasses
+    mc = tiny_model_config()
+    mc = dataclasses.replace(mc, dtype="bfloat16", audio=dataclasses.replace(
+        mc.audio, use_flash_attention=False))
+    model = init_model(mc, torch.Generator(cuda).manual_seed(0), cuda,
+                       train=True)
+    calls = []
+    for mod in model.modules():
+        if type(mod) is ae.ConvModule:
+            mod.register_forward_hook(
+                lambda m, i, o: calls.append(o.requires_grad))
+    g = torch.Generator().manual_seed(1)
+    b, t = 2, 40
+    feats = torch.randn(b, t, mc.audio.feature_dim, generator=g).to(cuda)
+    mask = torch.ones(b, t, dtype=torch.int32, device=cuda)
+    dg.LAUNCHES.clear()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        model.encode_audio(feats, mask)[0].float().sum().backward()
+        torch.cuda.synchronize()
+    assert calls and dg.LAUNCHES["depthwise_glu_fwd"] == len(calls)
+    assert dg.LAUNCHES["depthwise_glu_bwd_dx"] == sum(calls)
+    trains = sum(m.depthwise_kernel.requires_grad for m in model.modules()
+                 if type(m) is ae.ConvModule)
+    assert dg.LAUNCHES["depthwise_glu_bwd_dw"] == trains
+    names = [e.name for e in prof.events()]
+    assert not [n_ for n_ in names if "conv_depthwise2d" in n_]
+    assert any("depthwise_glu_fwd_kernel" in n_ for n_ in names)

@@ -252,7 +252,7 @@ def _global_kernels():
 
 def test_kernel_family_of_the_port_s_eight_kernels():
     names = _global_kernels()
-    assert len(names) == 11, names
+    assert len(names) == 14, names
     want = {"log_mel_normalize_kernel": "K1 log-mel normalise",
             "log_mel_fft_kernel": "K2 log-mel",
             "flash_rel_fwd_kernel": "K3 flash forward",
@@ -265,7 +265,11 @@ def test_kernel_family_of_the_port_s_eight_kernels():
             "layer_norm_fwd_kernel": "reduction (softmax, LayerNorm, sums)",
             "layer_norm_bwd_dx_kernel": "reduction (softmax, LayerNorm, sums)",
             "layer_norm_bwd_dgamma_kernel":
-                "reduction (softmax, LayerNorm, sums)"}
+                "reduction (softmax, LayerNorm, sums)",
+            # the depthwise GLU kernels stay in ATen's depthwise conv's class
+            "depthwise_glu_fwd_kernel": "depthwise convolution",
+            "depthwise_glu_bwd_kernel": "depthwise convolution",
+            "depthwise_glu_bwd_dw_kernel": "depthwise convolution"}
     assert sorted(want) == names
     for name in names:
         # as a trace prints them: templated, in the anonymous namespace
