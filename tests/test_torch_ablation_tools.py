@@ -38,6 +38,7 @@ from speech_transcript_embeddings_tpu.models import ingest_torch as jingest
 from speech_transcript_embeddings_torch import bridge
 from speech_transcript_embeddings_torch.models import ingest_torch
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "speech_transcript_embeddings_torch", "csrc")
@@ -55,14 +56,6 @@ def _load(path, **constants):
     for k, v in constants.items():
         setattr(module, k, v)
     return module
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

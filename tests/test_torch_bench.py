@@ -66,6 +66,7 @@ from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training import train_step as tts
 from speech_transcript_embeddings_torch.utils import bench as ub
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a tiny geometry through the tools' key=value overrides
@@ -91,14 +92,6 @@ def _load(path):
 
 
 bench_torch = _load("bench_torch.py")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- (a) bench.py's length mix ----------------------------------------------

@@ -20,6 +20,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 
 def tiny_retrieval(**audio):

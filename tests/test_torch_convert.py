@@ -22,17 +22,10 @@ from speech_transcript_embeddings_torch.models import convert
 from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from speech_transcript_embeddings_torch.training import loop
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 HEADS = HeadsConfig(projection_dim=24, dropout=0.0, cross_modal_heads=4,
                     alignment_heads=2)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

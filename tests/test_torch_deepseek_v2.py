@@ -1,11 +1,13 @@
 """The DeepSeek-V2 transcript tower of the port (``models/deepseek_v2.py``)
-against its plain reference (``reference/deepseek_v2.py``) on seeded random
-weights at a tiny size, in fp32 on the CPU: the forward, the pooled and
-projected embeddings, a train step's loss and gradients under the partial
-freeze; the YaRN frequencies and scale against their closed forms; the
-routing; the freeze labels, the config's JSON, the training CLI's preset, a
-checkpoint, and the Embedder's id call. The port's JAX package has no such
-tower, so nothing here imports it.
+against its plain reference (``benchmark/reference/deepseek_v2.py``, the
+one the benchmark's ``correct`` uses) on seeded random weights at a tiny
+size, in fp32 on the CPU: the forward, the pooled and projected embeddings,
+a train step's loss and gradients under the partial freeze; the YaRN
+frequencies and scale against their closed forms; the routing; the freeze
+labels, the config's JSON, the training CLI's preset, a checkpoint, and the
+Embedder's id call; that the reference imports nothing of the program,
+and that every CPU test module of the port imports the one-thread rule.
+The port's JAX package has no such tower, so nothing here imports it.
 
 Tolerances: program and reference are both fp32 and differ only in the
 order of their sums (SDPA against an explicit softmax, a sorted gather and
@@ -13,8 +15,10 @@ grouped sums against a masked loop), so they agree to a few fp32 ulps of
 the values' scale: 1e-5 relative on hidden states and embeddings, 1e-4 on
 gradients (summed over more terms)."""
 
+import ast
 import dataclasses
-import filecmp
+import glob
+import inspect
 import json
 import math
 import os
@@ -23,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.reference import deepseek_v2 as ref
 from speech_transcript_embeddings_torch import checkpoints
 from speech_transcript_embeddings_torch import config as C
 from speech_transcript_embeddings_torch import train as torch_train
@@ -31,22 +36,13 @@ from speech_transcript_embeddings_torch.models import deepseek_v2 as ds
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel, init_model, l2_normalize,
 )
-from speech_transcript_embeddings_torch.reference import deepseek_v2 as ref
 from speech_transcript_embeddings_torch.training import losses
 from speech_transcript_embeddings_torch.training import optimizer as opt_lib
 from speech_transcript_embeddings_torch.training import train_step as ts
+from torch_port_cfg import one_thread  # noqa: F401
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 GRAD_RTOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def tiny_text(**kw) -> C.DeepseekV2TextConfig:
@@ -405,9 +401,33 @@ def test_training_cli_runs_the_preset_at_a_tiny_size(tmp_path):
     np.testing.assert_allclose(np.linalg.norm(out, axis=1), 1, atol=1e-5)
 
 
-def test_benchmark_reference_is_a_copy_of_the_repository_reference():
-    assert filecmp.cmp(
-        os.path.join(ROOT, "speech_transcript_embeddings_torch", "reference",
-                     "deepseek_v2.py"),
-        os.path.join(ROOT, "benchmark", "reference", "deepseek_v2.py"),
-        shallow=False)
+def _imports(source: str) -> set[tuple[str, str]]:
+    """(top-level module, imported name) for each import in ``source``;
+    a relative import keeps its dots and ``import m`` gives (m, "")."""
+    found = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            found.update((a.name.split(".")[0], "") for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mod = "." * node.level + (node.module or "").split(".")[0]
+            found.update((mod, a.name) for a in node.names)
+    return found
+
+
+def test_import_rules_of_the_reference_and_the_cpu_tests():
+    """The reference stays independent of the code it checks: it imports
+    only what its docstring names, so a copy of a program module inside it
+    fails here. And every CPU test module of the port imports the
+    ``one_thread`` fixture (the card-only ``*_cuda.py`` files run without
+    it), so a new module that forgets it fails here instead of running on
+    torch's default pool in every xdist worker."""
+    imported = {m for m, _ in _imports(inspect.getsource(ref))}
+    assert imported <= {"__future__", "math", "typing", "torch"}, imported
+    forgot = []
+    for path in sorted(glob.glob(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "test_torch_*.py"))):
+        if not path.endswith("_cuda.py"):
+            with open(path) as f:
+                if ("torch_port_cfg", "one_thread") not in _imports(f.read()):
+                    forgot.append(os.path.basename(path))
+    assert not forgot, forgot

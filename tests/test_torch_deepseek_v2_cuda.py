@@ -8,6 +8,10 @@ hence ``--noconftest``):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_deepseek_v2_cuda.py
 
+from the repo root, as ``python -m pytest``: that form puts the root on
+``sys.path``, where ``benchmark.reference`` is found; a bare ``pytest``
+with ``--noconftest`` puts only ``tests/`` there and fails to collect.
+
 Tolerances: bf16 operands (8 significant bits, a relative rounding of
 2^-9) with fp32 accumulation. One product's outputs are within a few
 roundings of its fp32 value: 2e-2 of the largest output. Through the mid
@@ -22,12 +26,12 @@ import dataclasses
 import pytest
 import torch
 
+from benchmark.reference import deepseek_v2 as ref
 from speech_transcript_embeddings_torch import config as C
 from speech_transcript_embeddings_torch.models import deepseek_v2 as ds
 from speech_transcript_embeddings_torch.models.dual_encoder import (
     init_model, l2_normalize,
 )
-from speech_transcript_embeddings_torch.reference import deepseek_v2 as ref
 
 pytestmark = pytest.mark.cuda
 

@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from speech_transcript_embeddings_torch.config import AudioEncoderConfig
 from speech_transcript_embeddings_torch.models import audio_encoder as ae
 from speech_transcript_embeddings_torch.ops import depthwise_glu as dg
+from torch_port_cfg import one_thread  # noqa: F401
 
 BF16, F32 = torch.bfloat16, torch.float32
 

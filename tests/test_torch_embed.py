@@ -27,6 +27,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel,
 )
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 TEXTS = ["casa tempo dia", "mar sol", "uma palavra longa de teste aqui"]

@@ -23,6 +23,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
     DualEncoderModel, init_model,
 )
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 MC = tiny_model_config(use_word_alignment=False)
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -14,6 +14,7 @@ from speech_transcript_embeddings_tpu.ops.flash_attention import (
     flash_attention as jax_flash,
 )
 from speech_transcript_embeddings_torch.ops import flash_attention as fa
+from torch_port_cfg import one_thread  # noqa: F401
 
 NH, T, HD = 2, 150, 16
 L, R = 9, 3

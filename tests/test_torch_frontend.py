@@ -22,6 +22,7 @@ from speech_transcript_embeddings_torch.ops import frontend as fe
 from speech_transcript_embeddings_torch.ops import frontend_kernels as fk
 from speech_transcript_embeddings_torch.ops import make_frontend
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 from torch_log_mel_schedule import (
     cx, emulate_log_mel, emulate_normalize, float64_log_mel, stockham,
 )

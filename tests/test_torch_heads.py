@@ -29,6 +29,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
 )
 from speech_transcript_embeddings_torch.training import optimizer as topt
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 ZERO_GRAD_LEAVES = ("key.bias", "attn_k.bias")

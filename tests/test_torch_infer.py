@@ -18,18 +18,9 @@ from speech_transcript_embeddings_tpu.inference import embed as jembed
 from speech_transcript_embeddings_torch import bridge, checkpoints, infer
 from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 N = 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny models run as fast on one intra-op thread, and several test
-    workers then do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

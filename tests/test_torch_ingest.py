@@ -23,14 +23,7 @@ from test_ingest_torch import (  # noqa: F401  (the fixture)
     reference_ckpt,
 )
 from torch_port_cfg import port_cfg
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_port_cfg import one_thread  # noqa: F401
 
 
 def _heads_only_projection(ckpt, d):

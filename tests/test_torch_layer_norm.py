@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from speech_transcript_embeddings_torch.models import layers
 from speech_transcript_embeddings_torch.ops import layer_norm as ln
 from speech_transcript_embeddings_torch.parallel.collectives import ModelAxis
+from torch_port_cfg import one_thread  # noqa: F401
 
 EPS = 1e-5
 

@@ -25,20 +25,11 @@ from speech_transcript_embeddings_torch.data import (
 )
 from speech_transcript_embeddings_torch.training import loop as loop_mod
 from speech_transcript_embeddings_torch.training.loop import run_experiment
+from torch_port_cfg import one_thread  # noqa: F401
 
 METRIC_KEYS = {"loss", "avg_similarity", "median_similarity",
                "std_similarity", "clean_similarity", "corrupt_similarity",
                "similarity_gap"}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tiny models run as fast on one intra-op thread, and several test
-    workers then do not oversubscribe the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def smoke_cfg(tmp, samples=96, **train_kw) -> ExperimentConfig:

@@ -66,17 +66,10 @@ from speech_transcript_embeddings_tpu.training import losses as jlosses
 from speech_transcript_embeddings_tpu.training import optimizer as jopt
 from speech_transcript_embeddings_tpu.training import train_step as jts
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 LR = 1e-3
 ZERO_GRAD_LEAVES = (".key.bias", "pooling.score_out.bias", ".attn_k.bias")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def hold_to_step_rule(got: dict, want: dict, lr: float = LR) -> None:

@@ -25,6 +25,7 @@ from speech_transcript_embeddings_torch import config as tconfig
 from speech_transcript_embeddings_torch import data as tdata
 from speech_transcript_embeddings_torch import serve as tserve
 from speech_transcript_embeddings_torch.models.dual_encoder import init_model
+from torch_port_cfg import one_thread  # noqa: F401
 
 PRESETS = ["tiny_model_config", "retrieval_model_config",
            "roberta_model_config", "flagship_model_config",

@@ -67,6 +67,7 @@ from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training import train_step as tts
 from speech_transcript_embeddings_torch.utils import profile as up
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _close(got, want, what=""):
@@ -98,14 +99,6 @@ def _load(path):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- (a) the attribution on a hand-made trace -------------------------------

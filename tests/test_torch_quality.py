@@ -25,6 +25,7 @@ from speech_transcript_embeddings_tpu.utils import compilation_cache
 from speech_transcript_embeddings_torch import bridge, checkpoints
 from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POOL = 64
@@ -50,14 +51,6 @@ def _load(name):
 
 jproxy, tproxy = _load("proxy_quality_run"), _load("torch_proxy_quality_run")
 jint8, tint8 = _load("int8_quality_eval"), _load("torch_int8_quality_eval")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _as_dict(cfg):

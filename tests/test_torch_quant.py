@@ -31,16 +31,9 @@ from speech_transcript_embeddings_torch.models.dual_encoder import (
 from speech_transcript_embeddings_torch.models.layers import Dense
 from speech_transcript_embeddings_torch.ops import quant
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 TEXTS = ["uma frase de teste", "outra frase diferente aqui", "casa"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(dtype="float32"):

@@ -25,6 +25,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from speech_transcript_embeddings_torch.serve import (
     EmbeddingService, main, make_handler,
 )
+from torch_port_cfg import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training import train_step as tts
 from speech_transcript_embeddings_torch.utils import profile as up
+from torch_port_cfg import one_thread  # noqa: F401
 
 STEP_PHASES = ["frontend", "forward", "loss", "backward", "grad_norm",
                "optimizer", "metrics"]

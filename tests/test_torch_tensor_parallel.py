@@ -74,17 +74,10 @@ from test_torch_parallel import (
     _weights, hold_to_step_rule,
 )
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 ZERO_GRAD_LEAVES = ("key.bias", "attn_k.bias", "pooling.score_out.bias")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---- (1) the sharding rule ----------------------------------------------------

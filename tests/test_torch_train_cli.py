@@ -17,6 +17,7 @@ from speech_transcript_embeddings_torch.inference.embed import Embedder
 from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from speech_transcript_embeddings_torch.parallel import mesh as tmesh
 from speech_transcript_embeddings_torch.training import loop
+from torch_port_cfg import one_thread  # noqa: F401
 
 HEADS_OFF = ["model.heads.use_cross_modal=false",
              "model.heads.use_word_alignment=false"]

@@ -62,6 +62,7 @@ from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training import losses as tlosses
 from speech_transcript_embeddings_torch.training import train_step as tts
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 LR = 1e-3
 

@@ -53,17 +53,10 @@ from speech_transcript_embeddings_torch.models.dual_encoder import init_model
 from speech_transcript_embeddings_torch.ops import make_frontend
 from speech_transcript_embeddings_torch.training import train_step as tts
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 STEPS = 30
 DRAWS = 16
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 SITES = ("spec_augment", "conv", "text", "heads")

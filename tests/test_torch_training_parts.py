@@ -35,6 +35,7 @@ from speech_transcript_embeddings_torch.ops import flash_attention as fa
 from speech_transcript_embeddings_torch.training import losses
 from speech_transcript_embeddings_torch.training import optimizer as topt
 from torch_port_cfg import port_cfg
+from torch_port_cfg import one_thread  # noqa: F401
 
 
 def _heads_off(mc):
